@@ -1,0 +1,392 @@
+"""Synthetic LiDAR sequences: analytic trajectories over a raycast world.
+
+The numpy subset of ``pwclonet_pylidarslam_tpu/data/synthetic.py`` that the
+port needs to make scans without the JAX package: the corridor world, the
+numpy raycaster, the sensor model, the trajectories and the sequence
+generator.
+
+One difference: the reference casts rigid sweeps through its JAX
+``FrameRaycaster``; here each rigid frame is cast with the numpy
+:func:`raycast_hits` along ``d_world = dirs @ R.T`` from the frame's pose.
+The two differ at grazing rays, and a ray that hits in one and misses in the
+other changes which points the sampler keeps, so scans are not equal point
+for point to the reference's. Ground-truth poses are identical.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+@dataclasses.dataclass(frozen=True)
+class Rect:
+    """Finite rectangle: point ``origin``, edge vectors ``u``/``v``, outward normal.
+
+    ``roughness`` is the per-surface extra range-noise sigma in meters —
+    e.g. grassy ground returns are several centimeters rougher than building
+    facades, a real-KITTI failure mode the flat synthetic world lacked
+    (VERDICT round 1, item 1b).
+    """
+
+    origin: np.ndarray
+    u: np.ndarray
+    v: np.ndarray
+    roughness: float = 0.0
+
+    @property
+    def normal(self) -> np.ndarray:
+        n = np.cross(self.u, self.v)
+        return n / np.linalg.norm(n)
+
+
+def _box(center, size, roughness: float = 0.0) -> List[Rect]:
+    """Axis-aligned box as 6 rectangles."""
+    cx, cy, cz = center
+    sx, sy, sz = np.asarray(size) / 2.0
+    ex, ey, ez = np.array([1.0, 0, 0]), np.array([0, 1.0, 0]), np.array([0, 0, 1.0])
+    c = np.asarray(center, np.float64)
+    return [
+        Rect(c + ex * sx - ey * sy - ez * sz, 2 * sy * ey, 2 * sz * ez, roughness),
+        Rect(c - ex * sx - ey * sy - ez * sz, 2 * sz * ez, 2 * sy * ey, roughness),
+        Rect(c - ex * sx + ey * sy - ez * sz, 2 * sx * ex, 2 * sz * ez, roughness),
+        Rect(c - ex * sx - ey * sy - ez * sz, 2 * sz * ez, 2 * sx * ex, roughness),
+        Rect(c - ex * sx - ey * sy + ez * sz, 2 * sx * ex, 2 * sy * ey, roughness),
+    ]
+
+
+def default_world(seed: int = 0) -> List[Rect]:
+    """An urban-ish corridor: ground plane plus buildings flanking a street."""
+    rng = np.random.default_rng(seed)
+    rects = [
+        # large ground plane at z = -1.7
+        Rect(np.array([-200.0, -200.0, -1.7]), np.array([400.0, 0, 0]), np.array([0, 400.0, 0])),
+    ]
+    # buildings along both sides of a street running along +x
+    for i in range(14):
+        x = -40.0 + i * 22.0 + rng.uniform(-3, 3)
+        for side in (-1.0, 1.0):
+            y = side * (9.0 + rng.uniform(0, 6))
+            w = rng.uniform(6, 14)
+            d = rng.uniform(4, 8)
+            h = rng.uniform(4, 14)
+            rects.extend(_box([x, y + side * d / 2, -1.7 + h / 2], [w, d, h]))
+    # a few scattered obstacles on the street (parked cars / boxes)
+    for _ in range(10):
+        x = rng.uniform(-30, 260)
+        y = rng.uniform(-6, 6)
+        rects.extend(_box([x, y, -1.2], [rng.uniform(1.5, 4), rng.uniform(1.2, 2), 1.4]))
+    return rects
+
+
+class RectSoA:
+    """Rectangles packed into arrays — raycast vectorizes over rays AND
+    rectangles (matrix products instead of a Python loop per rect), with
+    bounding-sphere culling so a long world only pays for nearby geometry."""
+
+    def __init__(self, rects: List[Rect]):
+        # float32 throughout: the raycast is memory-bound on (N_rays, R)
+        # intermediates and centimeter precision is far below sensor noise
+        self.origin = np.stack([r.origin for r in rects]).astype(np.float32)
+        self.u = np.stack([r.u for r in rects]).astype(np.float32)
+        self.v = np.stack([r.v for r in rects]).astype(np.float32)
+        self.normal = np.stack([r.normal for r in rects]).astype(np.float32)
+        self.uu = np.einsum("rd,rd->r", self.u, self.u)
+        self.vv = np.einsum("rd,rd->r", self.v, self.v)
+        self.roughness = np.array([r.roughness for r in rects], np.float32)
+        self.center = self.origin + 0.5 * self.u + 0.5 * self.v
+        self.radius = 0.5 * np.linalg.norm(self.u + self.v, axis=-1)
+
+
+def raycast_hits(
+    soa: RectSoA,
+    origin: np.ndarray,
+    dirs: np.ndarray,
+    t_min: float = 1.5,
+    t_max: float = 80.0,
+    chunk: int = 128,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Closest-hit ``(ranges (N,), rect_idx (N,))`` for rays from a single
+    ``origin (3,)`` along ``dirs (N,3)``; inf / -1 where nothing is hit.
+
+    Per rect-chunk math avoids materializing any ``(N, R, 3)`` tensor: the
+    in-plane coordinates are ``a = (o·u + t·(d·u)) / ‖u‖²`` so everything is
+    ``(N, R)`` matrices (ray·edge products).
+    """
+    origin = np.asarray(origin, np.float32)
+    dirs = np.asarray(dirs, np.float32)
+    # bounding-sphere cull: a rect can only be hit within t_max of the origin
+    near = np.linalg.norm(soa.center - origin, axis=-1) <= t_max + soa.radius
+    keep = np.nonzero(near)[0]
+    n = dirs.shape[0]
+    best = np.full(n, np.inf, np.float32)
+    best_idx = np.full(n, -1, np.int64)
+    for s in range(0, keep.size, chunk):
+        sel = keep[s : s + chunk]
+        nr = soa.normal[sel]  # (R,3)
+        rel0 = soa.origin[sel] - origin  # (R,3)
+        denom = dirs @ nr.T  # (N,R)
+        num = np.einsum("rd,rd->r", rel0, nr)  # (R,)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = num[None, :] / denom
+        du = dirs @ soa.u[sel].T  # (N,R)
+        dv = dirs @ soa.v[sel].T
+        ou = -np.einsum("rd,rd->r", rel0, soa.u[sel])  # (origin-o_r)·u
+        ov = -np.einsum("rd,rd->r", rel0, soa.v[sel])
+        a = (ou[None, :] + t * du) / soa.uu[sel][None, :]
+        b = (ov[None, :] + t * dv) / soa.vv[sel][None, :]
+        ok = (
+            (np.abs(denom) > 1e-9)
+            & (t > t_min) & (t < t_max)
+            & (a >= 0) & (a <= 1) & (b >= 0) & (b <= 1)
+        )
+        t = np.where(ok, t, np.inf)
+        j = np.argmin(t, axis=1)
+        tj = t[np.arange(n), j]
+        better = tj < best
+        best = np.where(better, tj, best)
+        best_idx = np.where(better, sel[j], best_idx)
+    return best, best_idx
+
+
+def lidar_directions(
+    num_beams: int = 32, num_cols: int = 720,
+    fov_up_deg: float = 3.0, fov_down_deg: float = -24.0,
+) -> np.ndarray:
+    """Unit ray directions of a rotating multi-beam LiDAR, scan order (beam-major)."""
+    elevations = np.deg2rad(np.linspace(fov_up_deg, fov_down_deg, num_beams))
+    azimuths = np.linspace(np.pi, -np.pi, num_cols, endpoint=False)
+    el, az = np.meshgrid(elevations, azimuths, indexing="ij")
+    return np.stack(
+        [np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1
+    ).reshape(-1, 3)
+
+
+def make_trajectory(
+    kind: str, n_frames: int, speed: float = 1.0, yaw_rate_deg: float = 0.5
+) -> np.ndarray:
+    """Analytic GT trajectories ``(T, 4, 4)`` (vehicle frame: x forward)."""
+    poses = np.tile(np.eye(4), (n_frames, 1, 1))
+    if kind == "straight":
+        for t in range(n_frames):
+            poses[t, 0, 3] = speed * t
+    elif kind == "curve":
+        # left curve at ``yaw_rate_deg`` per frame (default: gentle)
+        yaw = 0.0
+        pos = np.zeros(3)
+        for t in range(n_frames):
+            c, s = np.cos(yaw), np.sin(yaw)
+            poses[t, :3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+            poses[t, :3, 3] = pos
+            pos = pos + np.array([c, s, 0.0]) * speed
+            yaw += np.deg2rad(yaw_rate_deg)
+    elif kind == "circle":
+        radius = speed * n_frames / (2 * np.pi)
+        for t in range(n_frames):
+            ang = 2 * np.pi * t / n_frames
+            c, s = np.cos(ang), np.sin(ang)
+            poses[t, :3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+            poses[t, :3, 3] = [radius * s, radius * (1 - c), 0.0]
+    elif kind == "kitti_drive":
+        # urban drive profile at 10 Hz mirroring real KITTI motion statistics
+        # (ref docs/results/KITTI benchmark sequences): stop-start traffic,
+        # sustained straights at ~12 m/s, 90-degree intersection turns at
+        # slow speed, an S-curve, plus small suspension pitch/roll/bounce.
+        # Phases: (frames, end_speed m/s, total_yaw_deg). Speed interpolates
+        # linearly across the phase; yaw rate is uniform within it. ``speed``
+        # scales the whole profile; n_frames truncates/extends (the final
+        # phase repeats if n_frames exceeds the schedule).
+        schedule = [
+            (60, 12.0, 0.0),    # pull away, accelerate to 12 m/s
+            (140, 12.0, 0.0),   # straight ~170 m
+            (40, 4.0, -12.0),   # brake into a gentle right drift
+            (50, 4.0, -78.0),   # 90-deg right turn at ~4 m/s
+            (60, 10.0, 0.0),    # accelerate out
+            (130, 10.0, 0.0),   # straight ~130 m
+            (45, 0.0, 0.0),     # brake to a stop (traffic light)
+            (25, 0.0, 0.0),     # standstill — zero-motion frames
+            (55, 8.0, 20.0),    # pull away into a left drift
+            (50, 8.0, 70.0),    # complete a 90-deg left turn
+            (120, 13.0, 0.0),   # fast straight
+            (60, 9.0, 35.0),    # S-curve half 1
+            (60, 11.0, -35.0),  # S-curve half 2
+            (100, 11.0, 0.0),   # run-out straight
+        ]
+        dt = 0.1
+        yaw, v = 0.0, 0.0
+        pos = np.zeros(3)
+        t = 0
+        phase_iter = iter(schedule + [schedule[-1]] * 1000)
+        while t < n_frames:
+            n_ph, v_end, yaw_tot = next(phase_iter)
+            v_end = v_end * speed
+            v0 = v
+            for k in range(n_ph):
+                if t >= n_frames:
+                    break
+                v = v0 + (v_end - v0) * (k + 1) / n_ph
+                c, s = np.cos(yaw), np.sin(yaw)
+                # suspension: ~0.3 deg pitch/roll sway + 2 cm vertical bounce
+                pitch = 0.005 * np.sin(0.31 * t) * (v / 10.0 + 0.2)
+                roll = 0.005 * np.sin(0.23 * t + 1.0) * (v / 10.0 + 0.2)
+                cp, sp = np.cos(pitch), np.sin(pitch)
+                cr, sr = np.cos(roll), np.sin(roll)
+                r_yaw = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+                r_pitch = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+                r_roll = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+                poses[t, :3, :3] = r_yaw @ r_pitch @ r_roll
+                poses[t, :3, 3] = pos + np.array(
+                    [0.0, 0.0, 0.02 * np.sin(0.47 * t) * (v / 10.0)]
+                )
+                pos = pos + np.array([c, s, 0.0]) * v * dt
+                yaw += np.deg2rad(yaw_tot / n_ph)
+                t += 1
+    elif kind == "there_and_back":
+        # drive out along +x, then reverse back with a small lateral offset —
+        # a rotation-free closed loop (exercises loop closure / backends
+        # without stressing the odometry's per-frame rotation limits)
+        half = n_frames // 2
+        for t in range(n_frames):
+            if t < half:
+                poses[t, :3, 3] = [speed * t, 0.0, 0.0]
+            else:
+                poses[t, :3, 3] = [speed * (2 * half - t - 1), 0.5, 0.0]
+    else:
+        raise ValueError(f"unknown trajectory kind {kind!r}")
+    return poses
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticSequenceConfig:
+    n_frames: int = 50
+    trajectory: str = "curve"
+    speed: float = 1.0  # meters / frame
+    yaw_rate_deg: float = 0.5  # deg / frame (for "curve")
+    num_beams: int = 32
+    num_cols: int = 720
+    fov_up_deg: float = 3.0
+    fov_down_deg: float = -24.0
+    noise_std: float = 0.01  # range-noise sigma (meters), on top of surface roughness
+    dropout: float = 0.1  # fraction of rays randomly dropped
+    num_points: int = 8192  # output scan size (subsample/pad)
+    seed: int = 0
+    # simulate the rolling-shutter effect of a spinning LiDAR: each column is
+    # measured from the pose interpolated between frame t (scan start) and
+    # frame t+1, so a rigid interpretation of the scan is distorted. The GT
+    # pose of frame t remains the scan-START pose.
+    motion_distortion: bool = False
+    # "corridor": straight street along +x (curving trajectories leave it
+    # after ~70 frames and see only ground). The reference's "along_path" and
+    # "kitti" worlds are not ported.
+    world: str = "corridor"
+
+
+def _interp_pose(pose0: np.ndarray, pose1: np.ndarray, alpha: float) -> np.ndarray:
+    """Slerp rotation + lerp translation between two 4x4 poses (host side)."""
+    from scipy.spatial.transform import Rotation, Slerp
+
+    slerp = Slerp([0.0, 1.0], Rotation.from_matrix([pose0[:3, :3], pose1[:3, :3]]))
+    out = np.eye(4)
+    out[:3, :3] = slerp([alpha])[0].as_matrix()
+    out[:3, 3] = (1.0 - alpha) * pose0[:3, 3] + alpha * pose1[:3, 3]
+    return out
+
+
+def generate_sequence_with_times(
+    config: SyntheticSequenceConfig = SyntheticSequenceConfig(),
+    world: Optional[List[Rect]] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Simulate a sequence; also return per-point intra-scan timestamps.
+
+    Returns ``(scans (T, num_points, 3), times (T, num_points), poses (T, 4, 4))``.
+    Scans are in the sensor frame (of the instant each point was measured, if
+    ``motion_distortion``; of the frame pose otherwise), zero-padded; ``times``
+    are the fraction of the scan period in [0, 1) at which each point was
+    taken (0 for padding); poses are ground-truth scan-start sensor poses.
+    Only the ``corridor`` world is ported; pass ``world`` for another one.
+    """
+    rng = np.random.default_rng(config.seed)
+    dirs_sensor = lidar_directions(
+        config.num_beams, config.num_cols, config.fov_up_deg, config.fov_down_deg
+    )
+    poses = make_trajectory(
+        config.trajectory, config.n_frames, config.speed, config.yaw_rate_deg
+    )
+    if world is not None:
+        rects = world
+    elif config.world == "corridor":
+        rects = default_world(config.seed)
+    else:
+        raise NotImplementedError(
+            f"world {config.world!r} is not ported; only 'corridor' is (see ROADMAP.md)"
+        )
+    soa = RectSoA(rects)
+
+    def cast(origin, d_world):
+        """Ranges with per-surface roughness folded into the range noise."""
+        ranges, idx = raycast_hits(soa, origin, d_world)
+        sigma = config.noise_std + np.where(idx >= 0, soa.roughness[idx], 0.0)
+        return ranges + rng.normal(size=ranges.shape) * sigma
+
+    # column index of each ray in beam-major scan order -> intra-scan time
+    col_of_ray = np.tile(np.arange(config.num_cols), config.num_beams)
+    alpha_of_ray = col_of_ray.astype(np.float64) / config.num_cols
+
+    # discretize the sweep into pose sub-steps (full slerp per ray is slow)
+    n_sub = 24
+
+    scans = np.zeros((config.n_frames, config.num_points, 3), np.float32)
+    times = np.zeros((config.n_frames, config.num_points), np.float32)
+
+    for t in range(config.n_frames):
+        if not config.motion_distortion:
+            rot, origin = poses[t, :3, :3], poses[t, :3, 3]
+            ranges = cast(origin, dirs_sensor @ rot.T)
+            ok = np.isfinite(ranges)
+            if config.dropout > 0:
+                ok &= rng.uniform(size=ok.shape) > config.dropout
+            pts = dirs_sensor[ok] * ranges[ok, None]
+            tstamps = alpha_of_ray[ok]
+        else:
+            if t + 1 < config.n_frames:
+                pose_next = poses[t + 1]
+            else:
+                # constant-velocity extrapolation: the last scan must be
+                # distorted like all others, not silently rigid
+                pose_next = poses[t] @ (np.linalg.inv(poses[t - 1]) @ poses[t])
+            sub_idx = np.minimum((alpha_of_ray * n_sub).astype(int), n_sub - 1)
+            pts_list, time_list = [], []
+            for s in range(n_sub):
+                sel_rays = sub_idx == s
+                if not np.any(sel_rays):
+                    continue
+                pose_s = _interp_pose(poses[t], pose_next, (s + 0.5) / n_sub)
+                rot, origin = pose_s[:3, :3], pose_s[:3, 3]
+                d_sensor = dirs_sensor[sel_rays]
+                ranges = cast(origin, d_sensor @ rot.T)
+                ok = np.isfinite(ranges)
+                if config.dropout > 0:
+                    ok &= rng.uniform(size=ok.shape) > config.dropout
+                pts_list.append(d_sensor[ok] * ranges[ok, None])
+                time_list.append(alpha_of_ray[sel_rays][ok])
+            pts = np.concatenate(pts_list)
+            tstamps = np.concatenate(time_list)
+        n = min(len(pts), config.num_points)
+        sel = rng.choice(len(pts), n, replace=False) if len(pts) > n else np.arange(len(pts))
+        scans[t, : len(sel)] = pts[sel]
+        times[t, : len(sel)] = tstamps[sel]
+    return scans, times, poses.astype(np.float64)
+
+
+def generate_sequence(
+    config: SyntheticSequenceConfig = SyntheticSequenceConfig(),
+    world: Optional[List[Rect]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Simulate a sequence. Returns ``(scans (T, num_points, 3), poses (T, 4, 4))``.
+
+    Scans are in the sensor frame, zero-padded to ``num_points``; poses are
+    ground-truth absolute sensor poses.
+    """
+    scans, _times, poses = generate_sequence_with_times(config, world)
+    return scans, poses

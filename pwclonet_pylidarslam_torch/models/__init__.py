@@ -1,0 +1,17 @@
+"""PWCLO-Net in PyTorch (eval mode) and its Flax weight converter."""
+
+from pwclonet_pylidarslam_torch.models.convert import load_flax_variables
+from pwclonet_pylidarslam_torch.models.pwclonet import (
+    PWCLONet,
+    PWCLONetConfig,
+    params_to_pose_matrix,
+    scaled_model_config,
+)
+
+__all__ = [
+    "PWCLONet",
+    "PWCLONetConfig",
+    "load_flax_variables",
+    "params_to_pose_matrix",
+    "scaled_model_config",
+]

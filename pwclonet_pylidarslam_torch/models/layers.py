@@ -1,0 +1,90 @@
+"""Shared neural building blocks, channel-last, eval mode.
+
+PyTorch counterpart of ``pwclonet_pylidarslam_tpu/models/layers.py``. A 1×1
+conv over ``(B, N, K, C)`` is a matmul on the trailing axis. Parameters keep
+the reference's names and layouts so that a Flax variable tree maps onto
+them one to one (``models/convert.py``): ``PointMLP`` owns ``kernel_i``
+``(Cin, Cout)``, ``scale_i`` and ``bias_i`` as parameters and the running
+BatchNorm statistics ``mean_i``/``var_i`` as buffers.
+
+Only eval mode is ported: training (batch statistics, momentum updates) is
+the training slice of ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+TRAINING_NOT_PORTED = (
+    "train=True is not ported: the torch package runs eval mode only; "
+    "training is the training slice of ROADMAP.md"
+)
+
+
+def check_eval(train: bool) -> None:
+    if train:
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+
+class PointMLP(nn.Module):
+    """Stack of (matmul → BatchNorm with running statistics → ReLU) over the
+    trailing channel axis; ``maxpool=True`` appends the max over axis -2.
+
+    ``in_features`` is explicit (Flax infers it at init).
+    """
+
+    def __init__(self, in_features: int, features: Sequence[int], eps: float = 1e-5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features = tuple(features)
+        self.eps = eps
+        cin = in_features
+        for i, f in enumerate(self.features):
+            kernel = torch.empty(cin, f)
+            nn.init.xavier_uniform_(kernel, generator=generator)
+            self.register_parameter(f"kernel_{i}", nn.Parameter(kernel))
+            self.register_parameter(f"scale_{i}", nn.Parameter(torch.ones(f)))
+            self.register_parameter(f"bias_{i}", nn.Parameter(torch.zeros(f)))
+            self.register_buffer(f"mean_{i}", torch.zeros(f))
+            self.register_buffer(f"var_{i}", torch.ones(f))
+            cin = f
+
+    def forward(self, x: torch.Tensor, train: bool = False, maxpool: bool = False) -> torch.Tensor:
+        check_eval(train)
+        for i in range(len(self.features)):
+            h = torch.matmul(x, getattr(self, f"kernel_{i}"))
+            mean, var = getattr(self, f"mean_{i}"), getattr(self, f"var_{i}")
+            h = (h - mean) * torch.rsqrt(var + self.eps) * getattr(self, f"scale_{i}") + getattr(
+                self, f"bias_{i}"
+            )
+            x = torch.relu(h)
+        if maxpool:
+            x = torch.amax(x, dim=-2)
+        return x
+
+
+class LinearHead(nn.Module):
+    """Plain linear layer (no activation, xavier-uniform weight)."""
+
+    def __init__(self, in_features: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features)
+        nn.init.xavier_uniform_(self.Dense_0.weight, generator=generator)
+        nn.init.zeros_(self.Dense_0.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_0(x)
+
+
+def spatial_encoding(centers: torch.Tensor, grouped: torch.Tensor) -> torch.Tensor:
+    """The 10-d point-pair encoding ``[p, q, q−p, |q−p|]`` of the attentive
+    cost volume: ``centers (B, S, 3)``, ``grouped (B, S, K, 3)`` →
+    ``(B, S, K, 10)``."""
+    p = centers[:, :, None, :].expand(grouped.shape)
+    diff = grouped - p
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1, keepdim=True) + 1e-20)
+    return torch.cat([p, grouped, diff, dist], dim=-1)

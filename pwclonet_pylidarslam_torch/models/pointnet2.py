@@ -1,0 +1,78 @@
+"""PointNet++-style set conv / set upconv modules (PWCLO-Net variants).
+
+PyTorch counterpart of ``SetConv`` and ``SetUpConv`` in
+``pwclonet_pylidarslam_tpu/models/pointnet2.py``, eval mode. ``SetConvMSG``,
+``FeaturePropagation`` and ``LFPModuleMSG`` are not ported yet (the
+point-set extras of ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from pwclonet_pylidarslam_torch import ops
+from pwclonet_pylidarslam_torch.models.layers import PointMLP
+
+
+class SetConv(nn.Module):
+    """Set abstraction: FPS to ``npoint`` centers, kNN group, MLP, max-pool.
+
+    ``forward(xyz (B,N,3), features (B,N,C) or None)`` →
+    ``(new_xyz (B,npoint,3), new_features (B,npoint,mlp[-1]))``.
+    ``in_channels`` is ``C``, or None for the first level, which groups the
+    raw xyz in place of features.
+    """
+
+    def __init__(self, in_channels: Optional[int], npoint: int, nsample: int,
+                 mlp: Sequence[int], generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.npoint = npoint
+        self.nsample = nsample
+        self.PointMLP_0 = PointMLP(3 + (3 if in_channels is None else in_channels), mlp,
+                                   generator=generator)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool = False):
+        idx = ops.furthest_point_sample(xyz, self.npoint)
+        new_xyz = ops.gather_points(xyz, idx)  # (B, npoint, 3)
+        _, nn_idx = ops.knn(new_xyz, xyz, self.nsample, approx=True)
+        if features is not None:
+            grouped_xyz, grouped_feat = ops.group_points_multi(nn_idx, xyz, features)
+            xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
+            x = torch.cat([xyz_diff, grouped_feat], dim=-1)
+        else:
+            # first level: concat the raw grouped xyz
+            grouped_xyz = ops.group_points(xyz, nn_idx)
+            xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
+            x = torch.cat([xyz_diff, grouped_xyz], dim=-1)
+        return new_xyz, self.PointMLP_0(x, train=train, maxpool=True)
+
+
+class SetUpConv(nn.Module):
+    """Feature propagation coarse → fine by kNN set-upconv.
+
+    ``forward(fine_xyz (B,Nf,3), coarse_xyz (B,Nc,3), fine_feat (B,Nf,Cf) or
+    None, coarse_feat (B,Nc,Cc))`` → ``(B, Nf, post_mlp[-1])``: for every fine
+    point, group its ``nsample`` nearest coarse points, concat the xyz
+    difference, MLP, max-pool, concat the fine skip features, post MLP.
+    """
+
+    def __init__(self, coarse_channels: int, fine_channels: Optional[int], nsample: int,
+                 mlp: Sequence[int], post_mlp: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.nsample = nsample
+        self.PointMLP_0 = PointMLP(coarse_channels + 3, mlp, generator=generator)
+        self.PointMLP_1 = PointMLP(mlp[-1] + (fine_channels or 0), post_mlp, generator=generator)
+
+    def forward(self, fine_xyz, coarse_xyz, fine_feat, coarse_feat, train: bool = False):
+        _, nn_idx = ops.knn(fine_xyz, coarse_xyz, self.nsample, approx=True)
+        grouped_feat, grouped_xyz = ops.group_points_multi(nn_idx, coarse_feat, coarse_xyz)
+        xyz_diff = grouped_xyz - fine_xyz[:, :, None, :]
+        x = torch.cat([grouped_feat, xyz_diff], dim=-1)
+        x = self.PointMLP_0(x, train=train, maxpool=True)  # (B, Nf, mlp[-1])
+        if fine_feat is not None:
+            x = torch.cat([x, fine_feat], dim=-1)
+        return self.PointMLP_1(x, train=train)

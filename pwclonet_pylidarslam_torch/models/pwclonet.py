@@ -1,0 +1,242 @@
+"""PWCLO-Net: hierarchical deep LiDAR odometry, eval mode, channel-last.
+
+PyTorch counterpart of ``pwclonet_pylidarslam_tpu/models/pwclonet.py``:
+
+- siamese 4-level set-conv pyramid (the four ``SetConv`` modules are shared
+  by both frames), npoint 2048/1024/256/64, nsample 32/32/16/16, output
+  channels 16/32/64/128;
+- attentive cost volume at level 3 + flow-feature-encoding set conv → level
+  4 flow embedding (64 ch);
+- level-4 embedding mask (FlowPredictor) + PoseCalculator → coarse (q, t);
+- 3 cascaded pose warp-refinement levels (3 → 2 → 1);
+- output ``(B, 4, 7)``: per level ``(t (3), q_wxyz normalized (4))``, index
+  0 = finest level (the final prediction).
+
+Submodules carry the Flax auto-names (``SetConv_0``, ``PoseWarpRefinement_2``,
+…) so that ``models/convert.py`` maps a Flax variable tree onto them by
+path. Only ``fused_eval=False`` and float32 are ported; the fused kernels
+and training are later slices of ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from pwclonet_pylidarslam_torch.core import rotation as rot
+from pwclonet_pylidarslam_torch.core import se3
+from pwclonet_pylidarslam_torch.device import resolve_device
+from pwclonet_pylidarslam_torch.models.costvolume import CostVolume
+from pwclonet_pylidarslam_torch.models.layers import LinearHead, PointMLP, check_eval
+from pwclonet_pylidarslam_torch.models.pointnet2 import SetConv, SetUpConv
+
+_EMB = 64  # flow-embedding / mask width of the reference channel plan
+
+
+class FlowPredictor(nn.Module):
+    """Embedding feature/mask predictor: MLP over concatenated features."""
+
+    def __init__(self, in_features: int, mlp: Sequence[int] = (128, 64),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.PointMLP_0 = PointMLP(in_features, mlp, generator=generator)
+
+    def forward(self, *features, train: bool = False) -> torch.Tensor:
+        x = torch.cat([f for f in features if f is not None], dim=-1)
+        return self.PointMLP_0(x, train=train)
+
+
+class PoseCalculator(nn.Module):
+    """Masked aggregation → linear heads for (q, t).
+
+    ``features/mask (B, N, C)``; the mask is softmaxed over N by the caller.
+    The reference's dropout(0.5) branches are the identity in eval mode.
+    """
+
+    def __init__(self, in_features: int, hidden: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.LinearHead_0 = LinearHead(in_features, hidden, generator=generator)
+        self.LinearHead_1 = LinearHead(hidden, 4, generator=generator)
+        self.LinearHead_2 = LinearHead(hidden, 3, generator=generator)
+
+    def forward(self, features, mask, train: bool = False):
+        check_eval(train)
+        pooled = torch.sum(features * mask, dim=1)  # (B, C)
+        big = self.LinearHead_0(pooled)
+        q = self.LinearHead_1(big)
+        q = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + 1e-10) + 1e-10)
+        t = self.LinearHead_2(big)
+        return q, t
+
+
+def quat_warp(q: torch.Tensor, t: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """``R(q)·p + t`` over ``points (B, N, 3)``."""
+    return rot.quat_apply(rot.quat_normalize(q), t, points)
+
+
+class PoseWarpRefinement(nn.Module):
+    """One coarse-to-fine refinement level.
+
+    set-upconv feature & mask propagation → quaternion warp of the fine F1
+    points by the coarse pose → re-embedding cost volume (k=6) → feature /
+    mask flow predictors → PoseCalculator → pose composition
+    ``q = q_det ⊗ q_coarse``, ``t = R(q_det)·t_coarse + t_det``. The finest
+    level has no mask predictor.
+    """
+
+    def __init__(self, fine_channels: int, last_level: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.last_level = last_level
+        self.SetUpConv_0 = SetUpConv(_EMB, fine_channels, 8, (128, 64), (64,), generator=g)
+        self.SetUpConv_1 = SetUpConv(_EMB, fine_channels, 8, (128, 64), (64,), generator=g)
+        self.CostVolume_0 = CostVolume(fine_channels, fine_channels, nsample=4, nsample_q=6,
+                                       generator=g)
+        self.FlowPredictor_0 = FlowPredictor(fine_channels + 2 * _EMB, generator=g)
+        if not last_level:
+            self.FlowPredictor_1 = FlowPredictor(fine_channels + 2 * _EMB, generator=g)
+        self.PoseCalculator_0 = PoseCalculator(_EMB, generator=g)
+
+    def forward(self, xyz_f1, feat_f1, xyz_f2, feat_f2, xyz_prev, feat_prev, mask_prev,
+                q_coarse, t_coarse, train: bool = False):
+        up_feat = self.SetUpConv_0(xyz_f1, xyz_prev, feat_f1, feat_prev, train=train)
+        up_mask = self.SetUpConv_1(xyz_f1, xyz_prev, feat_f1, mask_prev, train=train)
+        warped = quat_warp(q_coarse, t_coarse, xyz_f1)
+        residual_emb = self.CostVolume_0(warped, feat_f1, xyz_f2, feat_f2, train=train)
+        emb_feat = self.FlowPredictor_0(feat_f1, residual_emb, up_feat, train=train)
+        if self.last_level:
+            emb_mask = up_mask
+        else:
+            emb_mask = self.FlowPredictor_1(up_mask, emb_feat, feat_f1, train=train)
+        w = torch.softmax(emb_mask, dim=1)  # over N
+        q_det, t_det = self.PoseCalculator_0(emb_feat, w, train=train)
+        q = rot.quat_multiply(q_det, q_coarse)
+        t = quat_warp(q_det, t_det, t_coarse[:, None, :])[:, 0]
+        return q, t, emb_feat, emb_mask
+
+
+@dataclasses.dataclass(frozen=True)
+class PWCLONetConfig:
+    """Architecture hyperparameters (the reference's channel plan)."""
+
+    num_points: int = 8192
+    sa_npoints: Tuple[int, ...] = (2048, 1024, 256, 64)
+    sa_nsamples: Tuple[int, ...] = (32, 32, 16, 16)
+    sa_mlps: Tuple[Tuple[int, ...], ...] = (
+        (8, 8, 16),
+        (16, 16, 32),
+        (32, 32, 64),
+        (64, 64, 128),
+    )
+    bn_momentum_init: float = 0.5  # scheduled by the trainer
+    compute_dtype: str = "float32"  # only float32 is ported
+    fused_eval: bool = False  # the fused eval kernels are not ported yet
+
+
+def scaled_model_config(num_points: int, **overrides) -> PWCLONetConfig:
+    """The one model-config rule shared by training, testing and inference:
+    the reference channel plan at >= 2048 points, a proportionally scaled
+    pyramid for smoke runs."""
+    if num_points >= 2048:
+        return PWCLONetConfig(num_points=num_points, **overrides)
+    n = num_points
+    return PWCLONetConfig(
+        num_points=n,
+        sa_npoints=(n // 4, n // 8, n // 16, n // 32),
+        sa_nsamples=(8, 8, 8, 4),
+        **overrides,
+    )
+
+
+class PWCLONet(nn.Module):
+    """Full network. ``forward(xyz1 (B,N,3), xyz2 (B,N,3))`` →
+    ``(pose_params (B, 4, 7), aux)``, params ``[t, q_wxyz]`` per level,
+    fine→coarse (index 0 = final prediction).
+
+    Weights are a seeded init (xavier-uniform kernels, unit scale, zero bias
+    and mean, unit var) unless loaded with ``models/convert.py``.
+    """
+
+    def __init__(self, config: PWCLONetConfig = PWCLONetConfig(), seed: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        if config.fused_eval:
+            raise NotImplementedError(
+                "fused_eval=True is not ported: the fused MLP and cost-volume kernels "
+                "are the next slice of ROADMAP.md"
+            )
+        if config.compute_dtype != "float32":
+            raise NotImplementedError(f"compute_dtype={config.compute_dtype!r}: only float32 is ported")
+        device = resolve_device(device)
+        self.config = config
+        g = torch.Generator().manual_seed(seed)
+        mlps = config.sa_mlps
+        for i in range(4):
+            self.add_module(
+                f"SetConv_{i}",
+                SetConv(None if i == 0 else mlps[i - 1][-1], config.sa_npoints[i],
+                        config.sa_nsamples[i], mlps[i], generator=g),
+            )
+        c1, c2, c3, c4 = (m[-1] for m in mlps)
+        self.CostVolume_0 = CostVolume(c3, c3, nsample=4, nsample_q=32, generator=g)
+        self.SetConv_4 = SetConv(_EMB, config.sa_npoints[3], config.sa_nsamples[3],
+                                 (128, 64, 64), generator=g)
+        self.FlowPredictor_0 = FlowPredictor(c4 + _EMB, generator=g)
+        self.PoseCalculator_0 = PoseCalculator(_EMB, generator=g)
+        self.PoseWarpRefinement_0 = PoseWarpRefinement(c3, generator=g)
+        self.PoseWarpRefinement_1 = PoseWarpRefinement(c2, generator=g)
+        self.PoseWarpRefinement_2 = PoseWarpRefinement(c1, last_level=True, generator=g)
+        self.to(device)
+        self.eval()
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, train: bool = False):
+        check_eval(train)
+        sa = [getattr(self, f"SetConv_{i}") for i in range(4)]
+        # siamese pyramid: the same four modules serve both frames
+        f1 = [(xyz1, None)]
+        f2 = [(xyz2, None)]
+        for level in range(4):
+            f1.append(sa[level](*f1[-1]))
+            f2.append(sa[level](*f2[-1]))
+        (x1_1, p1_1), (x1_2, p1_2), (x1_3, p1_3), (x1_4, p1_4) = f1[1:]
+        (x2_1, p2_1), (x2_2, p2_2), (x2_3, p2_3), _ = f2[1:]
+
+        # attentive cost volume at level 3 + flow feature encoding → level 4
+        flow_emb = self.CostVolume_0(x1_3, p1_3, x2_3, p2_3)
+        x1_4, emb4 = self.SetConv_4(x1_3, flow_emb)
+
+        # level-4 embedding mask + coarse pose
+        mask4 = self.FlowPredictor_0(p1_4, emb4)
+        w4 = torch.softmax(mask4, dim=1)
+        q4, t4 = self.PoseCalculator_0(emb4, w4)
+
+        # cascaded warp-refinement: level 3 → 2 → 1
+        q3, t3, emb3, mask3 = self.PoseWarpRefinement_0(
+            x1_3, p1_3, x2_3, p2_3, x1_4, emb4, mask4, q4, t4)
+        q2, t2, emb2, mask2 = self.PoseWarpRefinement_1(
+            x1_2, p1_2, x2_2, p2_2, x1_3, emb3, mask3, q3, t3)
+        q1, t1, _, mask1 = self.PoseWarpRefinement_2(
+            x1_1, p1_1, x2_1, p2_1, x1_2, emb2, mask2, q2, t2)
+
+        def pack(q, t):
+            qn = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + 1e-10) + 1e-10)
+            return torch.cat([t, qn], dim=-1)
+
+        pose_params = torch.stack(
+            [pack(q1, t1), pack(q2, t2), pack(q3, t3), pack(q4, t4)], dim=1
+        )  # (B, 4, 7)
+        aux = {
+            "embedding_mask": torch.linalg.norm(torch.softmax(mask1, dim=1), dim=-1),
+            "point_cloud": x1_1,
+        }
+        return pose_params, aux
+
+
+def params_to_pose_matrix(params: torch.Tensor) -> torch.Tensor:
+    """``(..., 7)`` = (t, q_wxyz) → ``(..., 4, 4)``."""
+    return se3.params_to_pose_quat(params)

@@ -1,0 +1,97 @@
+"""Exact k-nearest-neighbour search with fixed shapes.
+
+``knn(query, ref, k)`` returns ``(sqdists (B,S,k), indices (B,S,k) int32)``
+sorted ascending, with true squared distances
+``max(|q|^2 + |r|^2 - 2 q.r, 0)`` and ties to the lower reference index,
+as ``pwclonet_pylidarslam_tpu/ops/knn.py::knn`` defines them. When ``k``
+exceeds the number of reference points, the ``k = N`` result is padded by
+repeating the nearest hit.
+
+The port is exact everywhere. ``approx`` is accepted for the reference's
+signature and changes nothing: the reference's approximate path is exact on
+the CPU, and its TPU kernel's approximation is not carried over.
+
+On a CUDA tensor :func:`knn` launches the kernel of ``csrc/knn.cu``; on a
+CPU tensor it runs :func:`knn_plain`. Masks are not taken yet: no caller on
+the PWCLO-Net path passes one.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from pwclonet_pylidarslam_torch.ops import _cuda
+
+MAX_K_CUDA = 32  # the kernel's largest sorted list
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_c a[..., c] * b[..., c]`` over the last axis, summed in channel
+    order with every product and sum rounded on its own, as the kernel does."""
+    acc = a[..., 0] * b[..., 0]
+    for c in range(1, a.shape[-1]):
+        acc = acc + a[..., c] * b[..., c]
+    return acc
+
+
+def pairwise_sqdist(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``(B, S, N)`` as ``max(|q|^2 + |r|^2 - 2 q.r, 0)``."""
+    q2 = _dot(query, query)[:, :, None]
+    r2 = _dot(ref, ref)[:, None, :]
+    cross = _dot(query[:, :, None, :], ref[:, None, :, :])
+    return torch.clamp_min(q2 + r2 - 2.0 * cross, 0.0)
+
+
+def knn_plain(query: torch.Tensor, ref: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch kNN for ``k <= N``: the pairwise formula, then a stable
+    sort, so equal distances keep the lower index first."""
+    dist = pairwise_sqdist(query, ref)
+    vals, idx = torch.sort(dist, dim=-1, stable=True)
+    return vals[..., :k].contiguous(), idx[..., :k].to(torch.int32)
+
+
+def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    _cuda.check_cuda_tensor("query", query, (torch.float32,), 3)
+    _cuda.check_cuda_tensor("ref", ref, (torch.float32,), 3)
+    b, s, c = query.shape
+    n = ref.shape[1]
+    if c != 3 or ref.shape[0] != b or ref.shape[2] != 3 or ref.device != query.device:
+        raise ValueError(
+            f"the kNN kernel takes query (B,S,3) and ref (B,N,3) on one device, "
+            f"got {tuple(query.shape)} and {tuple(ref.shape)}"
+        )
+    if not 1 <= k <= min(n, MAX_K_CUDA):
+        raise ValueError(f"the kNN kernel takes 1 <= k <= min(N, {MAX_K_CUDA}), got k={k}, N={n}")
+    dists = torch.empty((b, s, k), dtype=torch.float32, device=query.device)
+    idx = torch.empty((b, s, k), dtype=torch.int32, device=query.device)
+    if b * s:
+        _cuda.launch(
+            "knn", "pwclo_knn", query.device,
+            query.data_ptr(), ref.data_ptr(), b, s, n, k,
+            dists.data_ptr(), idx.data_ptr(), _cuda.stream_of(query),
+        )
+    return dists, idx
+
+
+def knn(
+    query: torch.Tensor, ref: torch.Tensor, k: int, approx: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours of ``query (B,S,C)`` in ``ref (B,N,C)``, exact.
+
+    CPU tensors take the plain version; CUDA tensors take the kernel, which
+    raises on a shape or dtype it does not take.
+    """
+    del approx  # exact everywhere; see the module docstring
+    n = ref.shape[1]
+    if k > n:
+        d, i = knn(query, ref, n)
+        reps = k - n
+        return (
+            torch.cat([d, d[..., :1].expand(*d.shape[:-1], reps)], dim=-1),
+            torch.cat([i, i[..., :1].expand(*i.shape[:-1], reps)], dim=-1),
+        )
+    if query.device.type == "cpu":
+        return knn_plain(query, ref, k)
+    return _knn_cuda(query.contiguous(), ref.contiguous(), k)

@@ -1,0 +1,118 @@
+"""PWCLO-Net deep LiDAR odometry (inference) in PyTorch.
+
+Counterpart of ``PWCLONetOdometry`` in
+``pwclonet_pylidarslam_tpu/slam/deep_odometry.py``: prepare each scan to a
+fixed point count, run the network on each consecutive frame pair on the
+device, and chain the relative poses on the host in float64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from pwclonet_pylidarslam_torch.core import se3
+from pwclonet_pylidarslam_torch.device import resolve_device
+from pwclonet_pylidarslam_torch.evaluation.metrics import compute_relative_poses
+from pwclonet_pylidarslam_torch.models import PWCLONet, PWCLONetConfig, load_flax_variables
+
+
+@dataclasses.dataclass
+class DeepOdometryConfig:
+    model: PWCLONetConfig = dataclasses.field(default_factory=PWCLONetConfig)
+    num_points: int = 8192
+
+
+class PWCLONetOdometry:
+    """PWCLO-Net frame-to-frame odometry (inference).
+
+    ``variables``: a Flax tree ``{"params": ..., "batch_stats": ...}`` of
+    numpy arrays from the reference's trainer, or None for the seeded init
+    of ``PWCLONet(seed=seed)``. The network predicts the pose of the
+    **current** frame in the previous frame's coordinates (finest level,
+    index 0). Runs on ``device``, CUDA unless the caller asks for the CPU.
+    """
+
+    def __init__(self, variables: Optional[Mapping] = None,
+                 config: Optional[DeepOdometryConfig] = None,
+                 device: Union[str, torch.device] = "cuda", seed: int = 0):
+        self.config = config or DeepOdometryConfig()
+        self.device = resolve_device(device)
+        self.model = PWCLONet(self.config.model, seed=seed, device=self.device)
+        if variables is not None:
+            load_flax_variables(self.model, variables)
+        self.state_pose: Optional[np.ndarray] = None
+        self._prev_scan: Optional[np.ndarray] = None
+        self.poses: list = []
+
+    def init(self):
+        self.state_pose = np.eye(4)
+        self._prev_scan = None
+        self.poses = []
+
+    def _prepare(self, points: np.ndarray) -> np.ndarray:
+        n = self.config.num_points
+        pts = points[np.linalg.norm(points, axis=-1) > 1e-6]
+        if len(pts) >= n:
+            idx = np.random.default_rng(len(pts)).choice(len(pts), n, replace=False)
+            pts = pts[idx]
+        else:
+            extra = np.random.default_rng(0).choice(len(pts), n - len(pts), replace=True)
+            pts = np.concatenate([pts, pts[extra]])
+        return pts.astype(np.float32)
+
+    @torch.inference_mode()
+    def _relative_poses(self, cur: np.ndarray, prev: np.ndarray) -> np.ndarray:
+        """Finest-level relative poses ``(B, 4, 4)`` float64 of pairs
+        ``cur (B, N, 3)`` (xyz1) against ``prev (B, N, 3)`` (xyz2)."""
+        x1 = torch.from_numpy(cur).to(self.device)
+        x2 = torch.from_numpy(prev).to(self.device)
+        params, _ = self.model(x1, x2)
+        return se3.params_to_pose_quat(params[:, 0]).cpu().numpy().astype(np.float64)
+
+    def process_next_frame(self, points: np.ndarray) -> np.ndarray:
+        scan = self._prepare(points)
+        if self._prev_scan is None:
+            self._prev_scan = scan
+            self.poses.append(np.eye(4))
+            return self.state_pose
+        # xyz1 = current, xyz2 = previous
+        rel = self._relative_poses(scan[None], self._prev_scan[None])[0]
+        self.state_pose = self.state_pose @ rel
+        self._prev_scan = scan
+        self.poses.append(self.state_pose.copy())
+        return self.state_pose
+
+    def process_sequence(self, scans: np.ndarray) -> np.ndarray:
+        """All consecutive pairs of ``scans (T, N, 3)`` in one batched
+        forward. Returns ``(T, 4, 4)`` absolute poses of the newly processed
+        frames."""
+        prepared = np.stack([self._prepare(s) for s in scans])
+        first_poses = []
+        if self._prev_scan is None:
+            prev = prepared[:-1]
+            cur = prepared[1:]
+            first_poses.append(np.eye(4))
+        else:
+            prev = np.concatenate([self._prev_scan[None], prepared[:-1]])
+            cur = prepared
+        rels = self._relative_poses(cur, prev) if len(cur) else np.zeros((0, 4, 4))
+        out = []
+        for _ in first_poses:
+            self.poses.append(self.state_pose.copy())
+            out.append(self.state_pose.copy())
+        for rel in rels:
+            self.state_pose = self.state_pose @ rel
+            self.poses.append(self.state_pose.copy())
+            out.append(self.state_pose.copy())
+        self._prev_scan = prepared[-1]
+        return np.stack(out)
+
+    def absolute_poses(self) -> np.ndarray:
+        return np.stack(self.poses)
+
+    def relative_poses(self) -> np.ndarray:
+        return compute_relative_poses(self.absolute_poses())

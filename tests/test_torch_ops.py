@@ -1,0 +1,139 @@
+"""Port parity: FPS, kNN and gather of ``pwclonet_pylidarslam_torch.ops``
+against the JAX reference on the CPU. The CUDA kernels are held against
+their plain versions in ``test_torch_cuda.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pwclonet_pylidarslam_torch.ops import _cuda
+from pwclonet_pylidarslam_torch.ops import fps as tfps
+from pwclonet_pylidarslam_torch.ops import gather as tgather
+from pwclonet_pylidarslam_torch.ops.knn import _knn_cuda, knn, knn_plain
+from pwclonet_pylidarslam_tpu import ops as jops
+from pwclonet_pylidarslam_tpu.ops.fps import _furthest_point_sample_lax
+
+
+def _jax_fps(pts, npoint, mask=None):
+    m = None if mask is None else jnp.asarray(mask)
+    return np.asarray(_furthest_point_sample_lax(jnp.asarray(pts), npoint, m))
+
+
+class TestFPS:
+    @pytest.mark.parametrize("b,n,npoint", [(2, 128, 16), (2, 500, 64), (1, 2048, 256)])
+    def test_matches_reference(self, rng, b, n, npoint):
+        pts = (rng.normal(size=(b, n, 3)) * 4.0).astype(np.float32)
+        out = tfps.furthest_point_sample(torch.from_numpy(pts), npoint)
+        assert out.dtype == torch.int32 and out.shape == (b, npoint)
+        np.testing.assert_array_equal(out.numpy(), _jax_fps(pts, npoint))
+
+    def test_padding_guard(self, rng):
+        pts = (rng.normal(size=(2, 256, 3)) + 2.0).astype(np.float32)
+        pts[:, :7] = 0.0  # sampling must start at the first valid point
+        pts[0, 50:90] = 0.0
+        out = tfps.furthest_point_sample(torch.from_numpy(pts), 64).numpy()
+        np.testing.assert_array_equal(out, _jax_fps(pts, 64))
+        assert out[0, 0] == 7 and not np.any((out[0] >= 50) & (out[0] < 90))
+        assert not np.any(out < 7)
+
+    def test_explicit_mask(self, rng):
+        pts = rng.normal(size=(2, 256, 3)).astype(np.float32)
+        mask = np.zeros((2, 256), np.float32)
+        mask[0, 128:] = 1
+        mask[1, 10:20] = 1  # fewer valid points than npoint: picks repeat
+        out = tfps.furthest_point_sample(torch.from_numpy(pts), 32, torch.from_numpy(mask)).numpy()
+        np.testing.assert_array_equal(out, _jax_fps(pts, 32, mask))
+        assert np.all(out[0] >= 128) and np.all((out[1] >= 10) & (out[1] < 20))
+
+    def test_non_multiple_of_128(self, rng):
+        pts = (rng.normal(size=(1, 300, 3)) + 5.0).astype(np.float32)
+        out = tfps.furthest_point_sample(torch.from_numpy(pts), 50).numpy()
+        np.testing.assert_array_equal(out, _jax_fps(pts, 50))
+
+
+class TestKNN:
+    """Distances differ from the reference's by the rounding of the cross
+    term: XLA's CPU dot chains fused multiply-adds, the port rounds each
+    product (as its kernel does, built with --fmad=false). That is about one
+    ulp of |q|^2 + |r|^2, so the inputs are unit-scale for atol 1e-5."""
+
+    @pytest.mark.parametrize(
+        "b,s,n,k",
+        [(2, 64, 256, 8), (1, 128, 2048, 32), (2, 100, 300, 6), (1, 40, 40, 4), (2, 16, 5, 8)],
+    )
+    def test_matches_reference(self, rng, b, s, n, k):
+        q = rng.normal(size=(b, s, 3)).astype(np.float32)
+        r = rng.normal(size=(b, n, 3)).astype(np.float32)
+        d, i = knn(torch.from_numpy(q), torch.from_numpy(r), k, approx=True)
+        jd, ji = jops.knn(jnp.asarray(q), jnp.asarray(r), k, approx=True)
+        assert i.dtype == torch.int32 and i.shape == (b, s, k) and d.shape == (b, s, k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=1e-5)
+
+    def test_self_query_and_ties(self):
+        # a grid has many exactly tied distances: ties go to the lower index,
+        # as lax.top_k orders them (the reference's approx=True path on the
+        # CPU, lax.approx_min_k, orders exact ties otherwise)
+        g = np.stack(np.meshgrid(*[np.arange(4.0)] * 3, indexing="ij"), -1)
+        pts = g.reshape(1, -1, 3).astype(np.float32)
+        d, i = knn(torch.from_numpy(pts), torch.from_numpy(pts), 7)
+        jd, ji = jops.knn(jnp.asarray(pts), jnp.asarray(pts), 7, approx=False)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(i.numpy()[0, :, 0], np.arange(pts.shape[1]))
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=1e-5)
+
+
+class TestGather:
+    def test_gather_points_bit_exact(self, rng):
+        src = rng.normal(size=(2, 50, 19)).astype(np.float32)
+        idx = rng.integers(0, 50, size=(2, 33)).astype(np.int32)
+        out = tgather.gather_points(torch.from_numpy(src), torch.from_numpy(idx))
+        ref = np.asarray(jops.gather_points(jnp.asarray(src), jnp.asarray(idx)))
+        assert out.dtype == torch.float32
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+    def test_group_points_bit_exact(self, rng):
+        src = rng.normal(size=(2, 40, 3)).astype(np.float32)
+        idx = rng.integers(0, 40, size=(2, 10, 8)).astype(np.int32)
+        out = tgather.group_points(torch.from_numpy(src), torch.from_numpy(idx))
+        ref = np.asarray(jops.group_points(jnp.asarray(src), jnp.asarray(idx)))
+        assert out.shape == (2, 10, 8, 3)
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+    @pytest.mark.parametrize("feat_dtype", [np.float32, np.float16])
+    def test_group_points_multi_casts_back(self, rng, feat_dtype):
+        xyz = rng.normal(size=(2, 40, 3)).astype(np.float32)
+        feat = rng.normal(size=(2, 40, 16)).astype(feat_dtype)
+        idx = rng.integers(0, 40, size=(2, 10, 6)).astype(np.int32)
+        gx, gf = tgather.group_points_multi(torch.from_numpy(idx), torch.from_numpy(xyz),
+                                            torch.from_numpy(feat))
+        jx, jf = jops.group_points_multi(jnp.asarray(idx), jnp.asarray(xyz), jnp.asarray(feat))
+        assert gx.dtype == torch.float32 and gf.numpy().dtype == feat_dtype
+        np.testing.assert_array_equal(gx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(gf.numpy(), np.asarray(jf))
+        # equal to grouping each tensor on its own
+        np.testing.assert_array_equal(
+            gf.numpy(), tgather.group_points(torch.from_numpy(feat), torch.from_numpy(idx)).numpy()
+        )
+
+
+def test_cpu_tensors_take_the_plain_path(rng):
+    """On CPU tensors no kernel is launched: the counters do not move."""
+    _cuda.reset_launch_counts()
+    pts = torch.from_numpy(rng.normal(size=(1, 64, 3)).astype(np.float32))
+    idx = tfps.furthest_point_sample(pts, 8)
+    tgather.gather_points(pts, idx)
+    knn(pts, pts, 4)
+    assert _cuda.launch_counts() == {"fps": 0, "knn": 0, "gather": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel entry points take only CUDA tensors; they never fall back."""
+    pts = torch.zeros(1, 8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfps._furthest_point_sample_cuda(pts, 4, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        _knn_cuda(pts, pts, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgather._gather_points_cuda(pts, torch.zeros(1, 4, dtype=torch.int32))
