@@ -11,31 +11,44 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the full-width main path gives it (B=1): FPS indices identical,
    kNN distances within 1e-5 and neighbour sets equal except where two
-   distances tie within 1e-5, gather bit-exact;
+   distances tie within 1e-5, gather bit-exact, the fused MLP + max-pool
+   within atol 3e-5 / rtol 1e-4 and the fused attentive aggregate within
+   atol 5e-5 / rtol 1e-4 (both sum in another order than the library's
+   matmul), on weights folded from perturbed BatchNorm statistics;
 3. run the small config (256 points) on the card and on the CPU with the
-   same seeded weights and inputs: pose params within atol 1e-4 / rtol 1e-3;
+   same seeded weights and inputs, and with ``fused_eval=True`` on the card
+   against the unfused card run: pose params within atol 1e-4 / rtol 1e-3;
 4. drive the main path at full width (the default ``PWCLONetConfig``: 8192
    points, the reference channel plan, float32, seeded random weights) over
-   a corridor sequence from the port's own generator: ``process_next_frame``
-   over every frame, then ``process_sequence`` over the same frames. The
-   launch counters are zeroed just before and read just after; every kernel
-   must have launched, and exactly its count per forward times the forwards;
-   the poses must be finite SE(3);
-5. time the forward at B=1, ``process_sequence``, and each kernel beside its
-   plain version, one PyTorch library call where one computes the same
-   function, and its bound (bytes over 3.35 TB/s or fp32 operations over
-   67 TFLOP/s, the H100 SXM's published peaks).
+   a corridor sequence from the port's own generator, once with
+   ``fused_eval=True`` (the shipped SLAM configuration; 10 frames) and once
+   unfused (4 frames): ``process_next_frame`` over every frame, then
+   ``process_sequence`` over the same frames. The launch counters are zeroed
+   just before each drive and read just after; every kernel of the path must
+   have launched, and exactly its count per forward times the forwards (the
+   unfused path launches neither fused kernel); the poses must be finite
+   SE(3). One full-width forward with ``compute_dtype="bfloat16"`` must give
+   finite unit-quaternion poses;
+5. time the forward at B=1 (unfused, fused, fused, unfused in turns),
+   ``process_sequence``, and each kernel beside its plain version, one
+   PyTorch library call where one computes the same function, and its bound
+   (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM's
+   published peaks). A kernel's ``ms`` is the device's time per call, taken
+   with the calls queued behind a sleeping kernel; ``call_ms`` is the time
+   per call when Python issues them one after another.
 
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if CUDA is unavailable or any check
-fails. ``--profile`` adds a profiler table of one full-width forward on
-stderr.
+fails. ``--profile`` profiles one full-width forward of each configuration:
+a table on stderr, and device time, launches and idle share in the metrics.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -54,11 +67,15 @@ from pwclonet_pylidarslam_torch.data.synthetic import (  # noqa: E402
     SyntheticSequenceConfig,
     generate_sequence,
 )
+from pwclonet_pylidarslam_torch import ops  # noqa: E402
 from pwclonet_pylidarslam_torch.models import PWCLONet, PWCLONetConfig  # noqa: E402
+from pwclonet_pylidarslam_torch.models.layers import PointMLP  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import _cuda  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import fps as tfps  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import gather as tgather  # noqa: E402
+from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.knn import knn, knn_plain, pairwise_sqdist  # noqa: E402
+from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain  # noqa: E402
 from pwclonet_pylidarslam_torch.slam.deep_odometry import (  # noqa: E402
     DeepOdometryConfig,
     PWCLONetOdometry,
@@ -69,8 +86,13 @@ FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores, published
 # launches of each kernel per forward pair, read off models/pwclonet.py:
 # FPS: 4 pyramid SetConvs x 2 frames + the flow-embedding SetConv;
 # kNN: 8 + 1 SetConv, 2 per cost volume x 4, 2 SetUpConvs x 3 levels;
-# gather: 2 per SetConv x 9, 2 per cost volume x 4, 1 per SetUpConv x 6.
-LAUNCHES_PER_FORWARD = {"fps": 9, "knn": 23, "gather": 32}
+# gather: 2 per SetConv x 9, 2 per cost volume x 4, 1 per SetUpConv x 6;
+# with fused_eval, mlp_maxpool: 1 per SetConv x 9 and per SetUpConv x 6;
+# attentive_aggregate: 2 per cost volume x 4.
+LAUNCHES_PER_FORWARD = {
+    False: {"fps": 9, "knn": 23, "gather": 32, "mlp_maxpool": 0, "attentive_aggregate": 0},
+    True: {"fps": 9, "knn": 23, "gather": 32, "mlp_maxpool": 15, "attentive_aggregate": 8},
+}
 KERNELS = {
     "fps": ("pwclonet_pylidarslam_torch/csrc/fps.cu",
             "pwclonet_pylidarslam_tpu/ops/pallas/fps_kernel.py:116"),
@@ -78,8 +100,13 @@ KERNELS = {
             "pwclonet_pylidarslam_tpu/ops/pallas/knn_kernel.py:103"),
     "gather": ("pwclonet_pylidarslam_torch/csrc/gather.cu",
                "pwclonet_pylidarslam_tpu/ops/pallas/gather_kernel.py:58"),
+    "mlp_maxpool": ("pwclonet_pylidarslam_torch/csrc/mlp_maxpool.cu",
+                    "pwclonet_pylidarslam_tpu/ops/pallas/mlp_kernel.py:61"),
+    "attentive_aggregate": ("pwclonet_pylidarslam_torch/csrc/attentive_aggregate.cu",
+                            "pwclonet_pylidarslam_tpu/ops/pallas/costvolume_kernel.py:122"),
 }
 N_FRAMES = 10  # corridor sequence: 9 pairs one by one, then 9 in one batch
+N_FRAMES_UNFUSED = 4  # the unfused path runs over the first frames only
 SMALL = PWCLONetConfig(num_points=256, sa_npoints=(64, 32, 16, 8), sa_nsamples=(8, 8, 8, 4))
 
 
@@ -111,6 +138,45 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """How many cycles ``torch.cuda._sleep`` spins in a millisecond on this card."""
+    cycles = 20_000_000
+    return cycles / time_ms(lambda: torch.cuda._sleep(cycles), reps=2, warmup=1)
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> dict:
+    """Times of ``fn()``: ``call_ms`` as :func:`time_ms` gives it (calls
+    issued one after another from Python, so a short kernel shows its
+    wrapper's host time), and ``ms``, the device's own time per call: the
+    same calls queued behind a sleeping kernel, so that the host runs ahead
+    and the card executes them back to back. Where the paced calls already
+    take more than 50 ms in all, the device is what paces them (or the
+    function is driven from the host by nature) and ``ms`` is ``call_ms``."""
+    call_ms = time_ms(fn, reps, warmup)
+    if call_ms * reps > 50.0:
+        return {"ms": call_ms, "call_ms": call_ms}
+    sleep_cycles = int(2.0 * call_ms * reps * sleep_cycles_per_ms())
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / reps, "call_ms": call_ms}
+
+
+def kernel_times(kernel, plain, library, reps: int, plain_reps: int) -> dict:
+    """``ms``/``call_ms`` of the kernel's wrapper, ``plain_ms`` and
+    ``library_ms`` (device times, see :func:`device_ms`)."""
+    out = device_ms(kernel, reps)
+    out["plain_ms"] = device_ms(plain, plain_reps, warmup=1)["ms"]
+    out["library_ms"] = None if library is None else device_ms(library, reps)["ms"]
+    return out
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -132,9 +198,9 @@ def fps_case(points: torch.Tensor, npoint: int) -> dict:
     bnd, by = bound_ms(nbytes, flops)
     return {
         "shape": f"B={b} N={n} npoint={npoint}", "max_abs_err": float(err),
-        "ms": time_ms(lambda: tfps.furthest_point_sample(points, npoint), reps=10),
-        "plain_ms": time_ms(lambda: tfps.furthest_point_sample_plain(points, npoint), 2, 1),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "bound_ms": bnd, "bound_by": by,
+        **kernel_times(lambda: tfps.furthest_point_sample(points, npoint),
+                       lambda: tfps.furthest_point_sample_plain(points, npoint), None, 10, 2),
     }
 
 
@@ -159,11 +225,10 @@ def knn_case(query: torch.Tensor, ref: torch.Tensor, k: int) -> dict:
     bnd, by = bound_ms(nbytes, flops)
     return {
         "shape": f"B={b} S={s} N={n} k={k}", "max_abs_err": err,
-        "ms": time_ms(lambda: knn(query, ref, k), reps=20),
-        "plain_ms": time_ms(lambda: knn_plain(query, ref, k), 3, 1),
         "bound_ms": bnd, "bound_by": by,
-        # torch.topk on the precomputed distance matrix (the matrix not timed)
-        "library_ms": time_ms(lambda: torch.topk(full, k, dim=-1, largest=False), 20),
+        # library: torch.topk on the precomputed distance matrix (the matrix not timed)
+        **kernel_times(lambda: knn(query, ref, k), lambda: knn_plain(query, ref, k),
+                       lambda: torch.topk(full, k, dim=-1, largest=False), 20, 3),
     }
 
 
@@ -180,11 +245,111 @@ def gather_case(src: torch.Tensor, idx: torch.Tensor) -> dict:
     index = idx.long()[..., None].expand(-1, -1, c)
     return {
         "shape": f"B={b} N={src.shape[1]} M={m} C={c}", "max_abs_err": err,
-        "ms": time_ms(lambda: tgather.gather_points(src, idx), reps=50),
-        "plain_ms": time_ms(lambda: tgather.gather_points_plain(src, idx), reps=50),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": time_ms(lambda: torch.gather(src, 1, index), reps=50),
+        **kernel_times(lambda: tgather.gather_points(src, idx),
+                       lambda: tgather.gather_points_plain(src, idx),
+                       lambda: torch.gather(src, 1, index), 50, 50),
     }
+
+
+def folded_stack(gen: torch.Generator, cin: int, widths: tuple) -> tuple:
+    """Folded ``(weights, biases)`` of a seeded ``PointMLP`` whose BatchNorm
+    scale, bias and running statistics are perturbed, so the fold matters."""
+    mlp = PointMLP(cin, widths, generator=gen)
+    with torch.no_grad():
+        for name, t in list(mlp.named_parameters()) + list(mlp.named_buffers()):
+            if name.startswith("kernel"):
+                continue
+            noise = torch.randn(t.shape, generator=gen) * 0.3
+            t.add_(noise.abs() if name.startswith("var") else noise)
+    return mlp.cuda().folded()
+
+
+def stack_macs(cin: int, wb: tuple) -> int:
+    """Multiply-adds per row of a folded stack."""
+    return sum(w.shape[0] * w.shape[1] for w in wb[0])
+
+
+def stack_bytes(wb: tuple) -> int:
+    return sum(4 * t.numel() for part in wb for t in part)
+
+
+def mlp_case(gen: torch.Generator, s: int, k: int, cin: int, widths: tuple) -> dict:
+    x = torch.randn(1, s, k, cin, generator=gen).cuda()
+    wb = folded_stack(gen, cin, widths)
+    out = ops.mlp_maxpool(x, *wb)
+    ref = mlp_maxpool_plain(x, *wb)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    name = f"({s},{k},{cin})->{widths}".replace(" ", "")
+    check(torch.allclose(out, ref, atol=3e-5, rtol=1e-4),
+          f"mlp_maxpool {name}: within atol 3e-5 rtol 1e-4 of plain (max {err:.3g})")
+    nbytes = 4 * x.numel() + stack_bytes(wb) + 4 * out.numel()
+    bnd, by = bound_ms(nbytes, 2.0 * s * k * stack_macs(cin, wb))
+    return {
+        "shape": name, "max_abs_err": err,
+        "bound_ms": bnd, "bound_by": by,
+        **kernel_times(lambda: ops.mlp_maxpool(x, *wb), lambda: mlp_maxpool_plain(x, *wb),
+                       None, 50, 20),
+    }
+
+
+def aggregate_case(gen: torch.Generator, s: int, k: int, cc: int, cg: int, cross: bool) -> dict:
+    """Cross stage: emb stack (128, 64, 64) over [enc, cf, gf]; self stage: no
+    emb stack, centre features in the attention. D = 64 in both."""
+    d = 64
+    cxyz = (torch.randn(1, s, 3, generator=gen) * 10.0).cuda()
+    gxyz = cxyz[:, :, None, :] + torch.randn(1, s, k, 3, generator=gen).cuda()
+    cfeat = torch.randn(1, s, cc, generator=gen).cuda()
+    gfeat = torch.randn(1, s, k, cg, generator=gen).cuda()
+    enc_wb = folded_stack(gen, 10, (d,))
+    emb_wb = folded_stack(gen, 10 + cc + cg, (128, 64, d)) if cross else None
+    att_wb = folded_stack(gen, d + (0 if cross else cc) + d, (128, d))
+    args = (cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, not cross)
+    out = ops.attentive_aggregate(*args)
+    ref = attentive_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    name = f"{'cross' if cross else 'self'} ({s},{k},{cc},{cg})"
+    check(torch.allclose(out, ref, atol=5e-5, rtol=1e-4),
+          f"attentive_aggregate {name}: within atol 5e-5 rtol 1e-4 of plain (max {err:.3g})")
+    stacks = [wb for wb in (enc_wb, emb_wb, att_wb) if wb is not None]
+    nbytes = 4 * sum(t.numel() for t in (cxyz, gxyz, cfeat, gfeat, out)) + sum(
+        stack_bytes(wb) for wb in stacks)
+    macs = sum(stack_macs(wb[0][0].shape[0], wb) for wb in stacks)
+    bnd, by = bound_ms(nbytes, 2.0 * s * k * macs)
+    return {
+        "shape": name, "max_abs_err": err,
+        "bound_ms": bnd, "bound_by": by,
+        **kernel_times(lambda: ops.attentive_aggregate(*args),
+                       lambda: attentive_aggregate_plain(*args), None, 50, 20),
+    }
+
+
+def fused_kernel_cases() -> dict:
+    """The two fused kernels at the shapes the full-width main path (B=1)
+    gives them; no single PyTorch call computes either, so no library time."""
+    gen = torch.Generator().manual_seed(0)
+    mlp = [
+        mlp_case(gen, 2048, 8, 67, (128, 64)),  # level-1 SetUpConv: the most work
+        mlp_case(gen, 2048, 32, 6, (8, 8, 16)),  # level-1 SetConv
+        mlp_case(gen, 1024, 32, 19, (16, 16, 32)),
+        mlp_case(gen, 256, 16, 35, (32, 32, 64)),
+        mlp_case(gen, 64, 16, 67, (64, 64, 128)),
+        mlp_case(gen, 64, 16, 67, (128, 64, 64)),  # SetConv on the flow embedding
+        mlp_case(gen, 1024, 8, 67, (128, 64)),
+        mlp_case(gen, 256, 8, 67, (128, 64)),
+    ]
+    aggregate = [
+        aggregate_case(gen, 256, 32, 64, 64, cross=True),  # level-3 cost volume
+        aggregate_case(gen, 256, 4, 64, 64, cross=False),
+        aggregate_case(gen, 256, 6, 64, 64, cross=True),  # re-embedding volumes
+        aggregate_case(gen, 1024, 6, 32, 32, cross=True),
+        aggregate_case(gen, 1024, 4, 32, 64, cross=False),
+        aggregate_case(gen, 2048, 6, 16, 16, cross=True),
+        aggregate_case(gen, 2048, 4, 16, 64, cross=False),
+    ]
+    return {"mlp_maxpool": mlp, "attentive_aggregate": aggregate}
 
 
 def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor) -> dict:
@@ -205,6 +370,7 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor) -> dict:
     gen = torch.Generator(device=scan.device).manual_seed(0)
     wide = torch.randn(1, 8192, 67, device=scan.device, generator=gen)
     cases["gather"].append(gather_case(wide, flat))
+    cases.update(fused_kernel_cases())
     return cases
 
 
@@ -213,7 +379,7 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def small_config_phase(scans: np.ndarray) -> float:
+def small_config_phase(scans: np.ndarray) -> dict:
     cpu = PWCLONet(SMALL, seed=1, device="cpu")
     gpu = PWCLONet(SMALL, seed=1, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -228,7 +394,17 @@ def small_config_phase(scans: np.ndarray) -> float:
     ok = torch.allclose(out.cpu(), ref, atol=1e-4, rtol=1e-3) and torch.allclose(
         aux["embedding_mask"].cpu(), ref_aux["embedding_mask"], atol=1e-4, rtol=1e-3)
     check(ok, f"small config: card vs CPU pose params within atol 1e-4 rtol 1e-3 (max {err:.3g})")
-    return err
+
+    fused = PWCLONet(dataclasses.replace(SMALL, fused_eval=True), seed=2, device="cuda")
+    fused.load_state_dict(cpu.state_dict())
+    with torch.inference_mode():
+        f_out, f_aux = fused(torch.from_numpy(x1).cuda(), torch.from_numpy(x2).cuda())
+    fused_err = (f_out - out).abs().max().item()
+    ok = torch.allclose(f_out, out, atol=1e-4, rtol=1e-3) and torch.allclose(
+        f_aux["embedding_mask"], aux["embedding_mask"], atol=1e-4, rtol=1e-3)
+    check(ok, "small config: fused vs unfused on the card within atol 1e-4 rtol 1e-3 "
+          f"(max {fused_err:.3g})")
+    return {"small_config_max_abs_err": err, "small_config_fused_vs_unfused_max_abs_err": fused_err}
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +422,8 @@ def is_se3(poses: np.ndarray, tol: float = 1e-4) -> bool:
 
 def main_path_phase(odo: PWCLONetOdometry, scans: np.ndarray) -> dict:
     n_frames = scans.shape[0]
+    fused = odo.config.model.fused_eval
+    label = "fused" if fused else "unfused"
     _cuda.reset_launch_counts()
     odo.init()
     for scan in scans:
@@ -256,19 +434,34 @@ def main_path_phase(odo: PWCLONetOdometry, scans: np.ndarray) -> dict:
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
     forwards = (n_frames - 1) + 1  # T-1 pairs one by one, then one batched forward
-    for name, per_fwd in LAUNCHES_PER_FORWARD.items():
-        check(counts[name] > 0, f"main path launched the {name} kernel ({counts[name]} times)")
+    for name, per_fwd in LAUNCHES_PER_FORWARD[fused].items():
+        if per_fwd:
+            check(counts[name] > 0,
+                  f"{label} main path launched the {name} kernel ({counts[name]} times)")
         check(counts[name] == per_fwd * forwards,
-              f"{name}: {per_fwd} launches per forward x {forwards} forwards")
-    check(per_frame.shape == batched.shape == (n_frames, 4, 4), "pose shapes (T, 4, 4)")
-    check(is_se3(per_frame) and is_se3(batched), "poses are finite SE(3)")
+              f"{label} {name}: {per_fwd} launches per forward x {forwards} forwards")
+    check(per_frame.shape == batched.shape == (n_frames, 4, 4), f"{label} pose shapes (T, 4, 4)")
+    check(is_se3(per_frame) and is_se3(batched), f"{label} poses are finite SE(3)")
     # reported, not held to a bound: the two batchings round the matmuls
     # differently, and the kNN on warped points (|q|^2 + |r|^2 - 2 q.r at
     # ranges of tens of metres) turns such last-bit differences into
     # neighbour swaps near ties, which random weights then amplify
     gap = float(np.abs(per_frame - batched).max())
-    log(f"per-frame vs batched pose chains: max gap {gap:.3g}")
-    return {"launches": counts, "forwards": forwards, "per_frame_vs_batched_max_gap": gap}
+    log(f"{label} per-frame vs batched pose chains: max gap {gap:.3g}")
+    return {"launches": counts, "forwards": forwards, "per_frame_vs_batched_max_gap": gap,
+            "poses": per_frame}
+
+
+def bfloat16_forward(x1: torch.Tensor, x2: torch.Tensor) -> None:
+    net = PWCLONet(PWCLONetConfig(compute_dtype="bfloat16"), seed=0)
+    with torch.inference_mode():
+        params, _ = net(x1, x2)
+    torch.cuda.synchronize()
+    quat_norm = torch.linalg.norm(params[..., 3:], dim=-1)
+    check(params.shape == (1, 4, 7) and params.dtype == torch.float32
+          and bool(torch.isfinite(params).all())
+          and bool(torch.allclose(quat_norm, torch.ones_like(quat_norm), atol=1e-5)),
+          "bfloat16 full-width forward: finite float32 poses with unit quaternions")
 
 
 # ---------------------------------------------------------------------------
@@ -276,54 +469,93 @@ def main_path_phase(odo: PWCLONetOdometry, scans: np.ndarray) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def timing_phase(odo: PWCLONetOdometry, scans: np.ndarray) -> dict:
-    prepared = np.stack([odo._prepare(s) for s in scans])
+def timing_phase(odos: dict, scans: np.ndarray) -> dict:
+    """``odos``: ``{"unfused": odometry, "fused": odometry}``. The B=1 forwards
+    are timed in turns (unfused, fused, fused, unfused) so that both see the
+    same card and host; every other time is taken per configuration."""
+    first = next(iter(odos.values()))
+    prepared = np.stack([first._prepare(s) for s in scans])
     x1 = torch.from_numpy(prepared[1:2]).cuda()
     x2 = torch.from_numpy(prepared[0:1]).cuda()
-    with torch.inference_mode():
-        fwd_ms = [time_ms(lambda: odo.model(x1, x2), reps=10) for _ in range(3)]
-        xb1 = torch.from_numpy(prepared[1:]).cuda()
-        xb2 = torch.from_numpy(prepared[:-1]).cuda()
-        fwd_batch_ms = time_ms(lambda: odo.model(xb1, xb2), reps=5)
-    seq_s = []
-    for _ in range(3):
-        odo.init()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        odo.process_sequence(scans)  # ends in a device-to-host copy
-        seq_s.append(time.perf_counter() - t0)
-    frame_s = []
-    odo.init()
-    odo.process_next_frame(scans[0])
-    for scan in scans[1:]:
-        t0 = time.perf_counter()
-        odo.process_next_frame(scan)
-        frame_s.append(time.perf_counter() - t0)
+    xb1 = torch.from_numpy(prepared[1:]).cuda()
+    xb2 = torch.from_numpy(prepared[:-1]).cuda()
     pairs = scans.shape[0] - 1
-    return {
-        "forward_ms_b1": statistics.median(fwd_ms),
-        "forward_ms_b1_runs": fwd_ms,
-        f"forward_ms_b{pairs}": fwd_batch_ms,
-        "process_next_frame_ms_median": 1e3 * statistics.median(frame_s),
-        "process_sequence_s_runs": seq_s,
-        "process_sequence_pairs_per_s": pairs / statistics.median(seq_s),
-        "pairs": pairs,
-    }
+    fwd_ms = {label: [] for label in odos}
+    with torch.inference_mode():
+        for label in ("unfused", "fused", "fused", "unfused"):
+            model = odos[label].model
+            fwd_ms[label].append(time_ms(lambda: model(x1, x2), reps=10))
+    out = {}
+    for label, odo in odos.items():
+        with torch.inference_mode():
+            fwd_batch_ms = time_ms(lambda: odo.model(xb1, xb2), reps=5)
+        seq_s = []
+        for _ in range(3):
+            odo.init()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            odo.process_sequence(scans)  # ends in a device-to-host copy
+            seq_s.append(time.perf_counter() - t0)
+        frame_s = []
+        odo.init()
+        odo.process_next_frame(scans[0])
+        for scan in scans[1:]:
+            t0 = time.perf_counter()
+            odo.process_next_frame(scan)
+            frame_s.append(time.perf_counter() - t0)
+        out[label] = {
+            "forward_ms_b1": statistics.median(fwd_ms[label]),
+            "forward_ms_b1_runs": fwd_ms[label],
+            f"forward_ms_b{pairs}": fwd_batch_ms,
+            "process_next_frame_ms_median": 1e3 * statistics.median(frame_s),
+            "process_sequence_s_runs": seq_s,
+            "process_sequence_pairs_per_s": pairs / statistics.median(seq_s),
+            "pairs": pairs,
+        }
+    return out
 
 
-def profile_forward(odo: PWCLONetOdometry, scans: np.ndarray) -> None:
+def profile_forward(label: str, odo: PWCLONetOdometry, scans: np.ndarray) -> dict:
+    """Profile one full-width B=1 forward: the table on stderr; returns the
+    device time by kernel, the count of device launches and the share of the
+    span from the first kernel's start to the last one's end in which no
+    kernel ran (with the profiler's own host overhead in it)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prepared = np.stack([odo._prepare(s) for s in scans[:2]])
     x1 = torch.from_numpy(prepared[1:2]).cuda()
     x2 = torch.from_numpy(prepared[0:1]).cuda()
     with torch.inference_mode():
-        odo.model(x1, x2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            odo.model(x1, x2)
-            torch.cuda.synchronize()
+        # the first profile of a process can lose its earliest device events
+        # while the tracer starts up: profile twice, keep the second
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                odo.model(x1, x2)
+                torch.cuda.synchronize()
+    print(f"profile of one {label} forward", file=sys.stderr)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25), file=sys.stderr)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = {name: sum(1 for e in device if f"{name}_kernel" in e.name)
+            for name in ("fps", "knn", "gather")}
+    expected = {name: LAUNCHES_PER_FORWARD[False][name] for name in seen}
+    check(seen == expected, f"profiler saw every FPS, kNN and gather launch of the {label} forward")
+    by_name: dict = {}
+    for e in device:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    span_ms = (max(e.time_range.end for e in device)
+               - min(e.time_range.start for e in device)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ours = {name: sum(ms for k, (ms, _) in by_name.items() if f"{name}_kernel" in k)
+            for name in KERNELS}
+    return {
+        "device_ms": busy_ms, "span_ms": span_ms, "idle_share": 1.0 - busy_ms / span_ms,
+        "device_launches": len(device), "device_ms_by_port_kernel": ours,
+        "device_ms_everything_else": busy_ms - sum(ours.values()),
+        "top_kernels": [{"name": k[:80], "ms": ms, "launches": n} for k, (ms, n) in top],
+    }
 
 
 def card_line() -> str:
@@ -336,7 +568,8 @@ def card_line() -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile", action="store_true", help="profile one full-width forward")
+    parser.add_argument("--profile", action="store_true",
+                        help="profile one full-width forward of each configuration")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -359,46 +592,75 @@ def main() -> int:
     t0 = time.perf_counter()
     scans, _gt = generate_sequence(SyntheticSequenceConfig(n_frames=N_FRAMES, seed=0))
     gen_s = time.perf_counter() - t0
-    odo = PWCLONetOdometry(None, DeepOdometryConfig(), device="cuda", seed=0)
-    scan0 = torch.from_numpy(odo._prepare(scans[0])[None]).cuda()
-    scan1 = torch.from_numpy(odo._prepare(scans[1])[None]).cuda()
+    # both on the card by default; the same seed gives both the same weights
+    odos = {
+        "unfused": PWCLONetOdometry(None, DeepOdometryConfig(), seed=0),
+        "fused": PWCLONetOdometry(
+            None, DeepOdometryConfig(model=PWCLONetConfig(fused_eval=True)), seed=0),
+    }
+    check(all(p.is_cuda for odo in odos.values() for p in odo.model.parameters()),
+          "the odometry's model lies on the card by default")
+    scan0 = torch.from_numpy(odos["fused"]._prepare(scans[0])[None]).cuda()
+    scan1 = torch.from_numpy(odos["fused"]._prepare(scans[1])[None]).cuda()
 
     log("phase 2: kernels against their plain versions")
     cases = kernel_phase(scan0, scan1)
 
-    log("phase 3: small config, card against CPU")
-    small_err = small_config_phase(scans)
+    log("phase 3: small config, card against CPU and fused against unfused")
+    small = small_config_phase(scans)
 
-    log("phase 4: the main path at full width")
-    main = main_path_phase(odo, scans)
+    log("phase 4: the main path at full width, fused and unfused")
+    main = {
+        "fused": main_path_phase(odos["fused"], scans),
+        "unfused": main_path_phase(odos["unfused"], scans[:N_FRAMES_UNFUSED]),
+    }
+    poses = {label: m.pop("poses") for label, m in main.items()}
+    # reported, not held: last-bit differences swap kNN neighbours on the
+    # warped points, and random weights amplify that (see main_path_phase)
+    fused_gap = float(np.abs(poses["fused"][:N_FRAMES_UNFUSED] - poses["unfused"]).max())
+    log(f"fused vs unfused pose chains over {N_FRAMES_UNFUSED} frames: max gap {fused_gap:.3g}")
+    bfloat16_forward(scan1, scan0)
 
     log("phase 5: times")
-    times = timing_phase(odo, scans)
+    times = timing_phase(odos, scans)
+    profiles = {}
     if args.profile:
-        profile_forward(odo, scans)
+        profiles = {label: profile_forward(label, odo, scans) for label, odo in odos.items()}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         head = cases[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main["launches"][name],
+            "launches": main["fused"]["launches"][name],
+            "launches_unfused_path": main["unfused"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "cases": cases[name],
         })
+    width = "8192 points, reference channel plan, float32, seeded random weights"
     metrics = {
-        "config": "PWCLONetConfig() full width: 8192 points, reference channel plan, "
-                  "fused_eval=False, float32, seeded random weights",
-        "build_s": build_s, "sequence_gen_s": gen_s, "small_config_max_abs_err": small_err,
-        **main, **times, "total_s": time.perf_counter() - t_start,
+        "configs": {
+            "fused": f"PWCLONetConfig(fused_eval=True) full width: {width}",
+            "unfused": f"PWCLONetConfig() full width: {width}",
+        },
+        "build_s": build_s, "sequence_gen_s": gen_s, **small,
+        "fused_vs_unfused_max_pose_gap": fused_gap,
+        **{label: {**main[label], **times[label]} for label in odos},
+        "profile": profiles, "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))
-    for value in (small_err, times["forward_ms_b1"], times["process_sequence_pairs_per_s"]):
-        check(math.isfinite(value), "finite result")
+    finite = list(small.values())
+    for t in times.values():
+        finite += [t["forward_ms_b1"], t["process_sequence_pairs_per_s"]]
+    finite += [k[key] for k in kernels for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")]
+    check(all(math.isfinite(v) for v in finite), "every reported result is finite")
+    check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
+          "five kernels, each launched on the main path")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,6 +1,6 @@
 """Attentive cost volume ("double attentive embedding"), eval mode.
 
-PyTorch counterpart of the unfused path of
+PyTorch counterpart of
 ``pwclonet_pylidarslam_tpu/models/costvolume.py``:
 
 1. cross-frame aggregate: for each (warped) F1 point, kNN(``nsample_q``) in
@@ -11,7 +11,9 @@ PyTorch counterpart of the unfused path of
    F1 features, grouped embeddings] → attention → weighted sum of the grouped
    first embeddings.
 
-The fused eval kernel (``fused_eval``) is the next slice of ROADMAP.md.
+With ``fused_eval`` each aggregate runs as one kernel on the BN-folded
+weights (``ops/costvolume.py``): encoding, both MLP stacks, softmax and
+weighted sum on chip. The parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from pwclonet_pylidarslam_torch import ops
-from pwclonet_pylidarslam_torch.models.layers import PointMLP, spatial_encoding
+from pwclonet_pylidarslam_torch.models.layers import PointMLP, check_eval, spatial_encoding
 
 
 class CostVolume(nn.Module):
@@ -31,37 +33,49 @@ class CostVolume(nn.Module):
 
     def __init__(self, feat1_channels: int, feat2_channels: int, nsample: int = 4,
                  nsample_q: int = 32, mlp1: Sequence[int] = (128, 64, 64),
-                 mlp2: Sequence[int] = (128, 64), generator: Optional[torch.Generator] = None):
+                 mlp2: Sequence[int] = (128, 64), generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None, fused_eval: bool = False):
         super().__init__()
         self.nsample = nsample
         self.nsample_q = nsample_q
+        self.fused_eval = fused_eval
         d = mlp1[-1]
-        g = generator
+        kw = dict(generator=generator, dtype=dtype)
         # the reference's creation order, which names the Flax variables
-        self.PointMLP_0 = PointMLP(10 + feat1_channels + feat2_channels, mlp1, generator=g)
-        self.PointMLP_1 = PointMLP(10, (d,), generator=g)
-        self.PointMLP_2 = PointMLP(2 * d, mlp2, generator=g)
-        self.PointMLP_3 = PointMLP(10, (d,), generator=g)
-        self.PointMLP_4 = PointMLP(d + feat1_channels + d, mlp2, generator=g)
+        self.PointMLP_0 = PointMLP(10 + feat1_channels + feat2_channels, mlp1, **kw)
+        self.PointMLP_1 = PointMLP(10, (d,), **kw)
+        self.PointMLP_2 = PointMLP(2 * d, mlp2, **kw)
+        self.PointMLP_3 = PointMLP(10, (d,), **kw)
+        self.PointMLP_4 = PointMLP(d + feat1_channels + d, mlp2, **kw)
 
     def forward(self, xyz1, feat1, xyz2, feat2, train: bool = False) -> torch.Tensor:
+        check_eval(train)
         m_emb, m_enc1, m_att1, m_enc2, m_att2 = (
             self.PointMLP_0, self.PointMLP_1, self.PointMLP_2, self.PointMLP_3, self.PointMLP_4,
         )
         # ---- first (cross-frame) attentive aggregate
         _, idx_q = ops.knn(xyz1, xyz2, self.nsample_q, approx=True)
         q_xyz, q_feat = ops.group_points_multi(idx_q, xyz2, feat2)
-        enc = spatial_encoding(xyz1, q_xyz)  # (B, S, Kq, 10)
-        p_feat = feat1[:, :, None, :].expand(*q_feat.shape[:3], feat1.shape[-1])
-        emb = m_emb(torch.cat([enc, p_feat, q_feat], dim=-1), train=train)
-        enc1 = m_enc1(enc, train=train)
-        wq = m_att1(torch.cat([enc1, emb], dim=-1), train=train)
-        wq = torch.softmax(wq, dim=-2)  # attention over the Kq neighbours
-        first = torch.sum(wq * emb, dim=-2)  # (B, S, mlp1[-1])
+        if self.fused_eval:
+            first = ops.attentive_aggregate(
+                xyz1, q_xyz, feat1, q_feat, m_enc1.folded(), m_emb.folded(), m_att1.folded(),
+                att_includes_center=False)
+        else:
+            enc = spatial_encoding(xyz1, q_xyz)  # (B, S, Kq, 10)
+            p_feat = feat1[:, :, None, :].expand(*q_feat.shape[:3], feat1.shape[-1])
+            emb = m_emb(torch.cat([enc, p_feat, q_feat], dim=-1), train=train)
+            enc1 = m_enc1(enc, train=train)
+            wq = m_att1(torch.cat([enc1, emb], dim=-1), train=train)
+            wq = torch.softmax(wq, dim=-2)  # attention over the Kq neighbours
+            first = torch.sum(wq * emb, dim=-2)  # (B, S, mlp1[-1])
 
         # ---- second (self) attentive aggregate
         _, idx_s = ops.knn(xyz1, xyz1, self.nsample, approx=True)
         s_xyz, s_emb = ops.group_points_multi(idx_s, xyz1, first)
+        if self.fused_eval:
+            return ops.attentive_aggregate(
+                xyz1, s_xyz, feat1, s_emb, m_enc2.folded(), None, m_att2.folded(),
+                att_includes_center=True)
         enc_s = spatial_encoding(xyz1, s_xyz)
         enc2 = m_enc2(enc_s, train=train)
         p_feat_s = feat1[:, :, None, :].expand(*s_emb.shape[:3], feat1.shape[-1])

@@ -8,7 +8,9 @@ them one to one (``models/convert.py``): ``PointMLP`` owns ``kernel_i``
 BatchNorm statistics ``mean_i``/``var_i`` as buffers.
 
 Only eval mode is ported: training (batch statistics, momentum updates) is
-the training slice of ROADMAP.md.
+the training slice of ROADMAP.md. In eval mode ``PointMLP`` can fold each
+BatchNorm into its matmul (``folded()``) and run the whole MLP + max-pool
+block as one kernel (``forward(..., fused=True)``, ``ops/mlp.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from pwclonet_pylidarslam_torch import ops
 
 TRAINING_NOT_PORTED = (
     "train=True is not ported: the torch package runs eval mode only; "
@@ -33,14 +37,21 @@ class PointMLP(nn.Module):
     """Stack of (matmul → BatchNorm with running statistics → ReLU) over the
     trailing channel axis; ``maxpool=True`` appends the max over axis -2.
 
-    ``in_features`` is explicit (Flax infers it at init).
+    ``in_features`` is explicit (Flax infers it at init). ``dtype=
+    torch.bfloat16`` runs the unfused matmuls in bf16 (inputs and kernel cast,
+    BatchNorm in float32, activations cast back; the result is float32).
+    With ``fused=True`` the MLP + max-pool block of a 4-d input runs as one
+    float32 kernel on the BN-folded weights, whatever ``dtype`` is.
     """
 
     def __init__(self, in_features: int, features: Sequence[int], eps: float = 1e-5,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = tuple(features)
         self.eps = eps
+        self.dtype = dtype
+        self._folded = None  # (state key, (weights, biases))
         cin = in_features
         for i, f in enumerate(self.features):
             kernel = torch.empty(cin, f)
@@ -52,15 +63,42 @@ class PointMLP(nn.Module):
             self.register_buffer(f"var_{i}", torch.ones(f))
             cin = f
 
-    def forward(self, x: torch.Tensor, train: bool = False, maxpool: bool = False) -> torch.Tensor:
+    def _layers(self) -> list:
+        return [
+            tuple(getattr(self, f"{name}_{i}") for name in ("kernel", "scale", "bias", "mean", "var"))
+            for i in range(len(self.features))
+        ]
+
+    @torch.no_grad()
+    def folded(self) -> tuple:
+        """The BN-folded ``(weights, biases)`` of the stack, for the fused
+        kernels. Folded once and kept until a parameter or statistic is
+        written in place (its ``_version`` moves) or replaced, as ``.to()``
+        does (its ``data_ptr()`` moves)."""
+        layers = self._layers()
+        tensors = [t for layer in layers for t in layer]
+        # inference tensors carry no version counter: nothing to watch, fold anew
+        key = None if any(t.is_inference() for t in tensors) else tuple(
+            (t._version, t.data_ptr(), t.device) for t in tensors)
+        if key is None or self._folded is None or self._folded[0] != key:
+            self._folded = (key, ops.fold_stack(layers, self.eps))
+        return self._folded[1]
+
+    def forward(self, x: torch.Tensor, train: bool = False, maxpool: bool = False,
+                fused: bool = False) -> torch.Tensor:
         check_eval(train)
-        for i in range(len(self.features)):
-            h = torch.matmul(x, getattr(self, f"kernel_{i}"))
-            mean, var = getattr(self, f"mean_{i}"), getattr(self, f"var_{i}")
-            h = (h - mean) * torch.rsqrt(var + self.eps) * getattr(self, f"scale_{i}") + getattr(
-                self, f"bias_{i}"
-            )
+        if fused and maxpool and x.dim() == 4:
+            return ops.mlp_maxpool(x.float(), *self.folded())
+        for kernel, scale, bias, mean, var in self._layers():
+            if self.dtype is not None:
+                h = torch.matmul(x.to(self.dtype), kernel.to(self.dtype)).float()
+            else:
+                h = torch.matmul(x, kernel)
+            h = (h - mean) * torch.rsqrt(var + self.eps) * scale + bias
+            if self.dtype is not None:
+                h = h.to(self.dtype)
             x = torch.relu(h)
+        x = x.float()
         if maxpool:
             x = torch.amax(x, dim=-2)
         return x

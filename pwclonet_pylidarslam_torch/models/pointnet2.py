@@ -1,9 +1,11 @@
 """PointNet++-style set conv / set upconv modules (PWCLO-Net variants).
 
 PyTorch counterpart of ``SetConv`` and ``SetUpConv`` in
-``pwclonet_pylidarslam_tpu/models/pointnet2.py``, eval mode. ``SetConvMSG``,
-``FeaturePropagation`` and ``LFPModuleMSG`` are not ported yet (the
-point-set extras of ROADMAP.md).
+``pwclonet_pylidarslam_tpu/models/pointnet2.py``, eval mode. With
+``fused_eval`` the grouped MLP + max-pool of either module runs as one
+kernel (``ops/mlp.py``); ``dtype`` is the compute dtype of the unfused
+matmuls. ``SetConvMSG``, ``FeaturePropagation`` and ``LFPModuleMSG`` are not
+ported yet (the point-set extras of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ class SetConv(nn.Module):
     """
 
     def __init__(self, in_channels: Optional[int], npoint: int, nsample: int,
-                 mlp: Sequence[int], generator: Optional[torch.Generator] = None):
+                 mlp: Sequence[int], generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None, fused_eval: bool = False):
         super().__init__()
         self.npoint = npoint
         self.nsample = nsample
+        self.fused_eval = fused_eval
         self.PointMLP_0 = PointMLP(3 + (3 if in_channels is None else in_channels), mlp,
-                                   generator=generator)
+                                   generator=generator, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool = False):
         idx = ops.furthest_point_sample(xyz, self.npoint)
@@ -47,7 +51,7 @@ class SetConv(nn.Module):
             grouped_xyz = ops.group_points(xyz, nn_idx)
             xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
             x = torch.cat([xyz_diff, grouped_xyz], dim=-1)
-        return new_xyz, self.PointMLP_0(x, train=train, maxpool=True)
+        return new_xyz, self.PointMLP_0(x, train=train, maxpool=True, fused=self.fused_eval)
 
 
 class SetUpConv(nn.Module):
@@ -61,18 +65,21 @@ class SetUpConv(nn.Module):
 
     def __init__(self, coarse_channels: int, fine_channels: Optional[int], nsample: int,
                  mlp: Sequence[int], post_mlp: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None, fused_eval: bool = False):
         super().__init__()
         self.nsample = nsample
-        self.PointMLP_0 = PointMLP(coarse_channels + 3, mlp, generator=generator)
-        self.PointMLP_1 = PointMLP(mlp[-1] + (fine_channels or 0), post_mlp, generator=generator)
+        self.fused_eval = fused_eval
+        self.PointMLP_0 = PointMLP(coarse_channels + 3, mlp, generator=generator, dtype=dtype)
+        self.PointMLP_1 = PointMLP(mlp[-1] + (fine_channels or 0), post_mlp, generator=generator,
+                                   dtype=dtype)
 
     def forward(self, fine_xyz, coarse_xyz, fine_feat, coarse_feat, train: bool = False):
         _, nn_idx = ops.knn(fine_xyz, coarse_xyz, self.nsample, approx=True)
         grouped_feat, grouped_xyz = ops.group_points_multi(nn_idx, coarse_feat, coarse_xyz)
         xyz_diff = grouped_xyz - fine_xyz[:, :, None, :]
         x = torch.cat([grouped_feat, xyz_diff], dim=-1)
-        x = self.PointMLP_0(x, train=train, maxpool=True)  # (B, Nf, mlp[-1])
+        x = self.PointMLP_0(x, train=train, maxpool=True, fused=self.fused_eval)  # (B, Nf, mlp[-1])
         if fine_feat is not None:
             x = torch.cat([x, fine_feat], dim=-1)
         return self.PointMLP_1(x, train=train)

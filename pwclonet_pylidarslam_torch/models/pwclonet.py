@@ -14,8 +14,10 @@ PyTorch counterpart of ``pwclonet_pylidarslam_tpu/models/pwclonet.py``:
 
 Submodules carry the Flax auto-names (``SetConv_0``, ``PoseWarpRefinement_2``,
 …) so that ``models/convert.py`` maps a Flax variable tree onto them by
-path. Only ``fused_eval=False`` and float32 are ported; the fused kernels
-and training are later slices of ROADMAP.md.
+path. ``PWCLONetConfig.fused_eval`` runs every set-conv MLP + max-pool block
+and every attentive aggregate as one kernel each (``ops/mlp.py``,
+``ops/costvolume.py``); ``compute_dtype="bfloat16"`` runs the unfused MLP
+matmuls in bf16. Training is a later slice of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -34,15 +36,17 @@ from pwclonet_pylidarslam_torch.models.layers import LinearHead, PointMLP, check
 from pwclonet_pylidarslam_torch.models.pointnet2 import SetConv, SetUpConv
 
 _EMB = 64  # flow-embedding / mask width of the reference channel plan
+_COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 class FlowPredictor(nn.Module):
     """Embedding feature/mask predictor: MLP over concatenated features."""
 
     def __init__(self, in_features: int, mlp: Sequence[int] = (128, 64),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.PointMLP_0 = PointMLP(in_features, mlp, generator=generator)
+        self.PointMLP_0 = PointMLP(in_features, mlp, generator=generator, dtype=dtype)
 
     def forward(self, *features, train: bool = False) -> torch.Tensor:
         x = torch.cat([f for f in features if f is not None], dim=-1)
@@ -89,17 +93,21 @@ class PoseWarpRefinement(nn.Module):
     """
 
     def __init__(self, fine_channels: int, last_level: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None, fused_eval: bool = False):
         super().__init__()
         g = generator
+        kw = dict(generator=g, dtype=dtype)
         self.last_level = last_level
-        self.SetUpConv_0 = SetUpConv(_EMB, fine_channels, 8, (128, 64), (64,), generator=g)
-        self.SetUpConv_1 = SetUpConv(_EMB, fine_channels, 8, (128, 64), (64,), generator=g)
+        self.SetUpConv_0 = SetUpConv(_EMB, fine_channels, 8, (128, 64), (64,),
+                                     fused_eval=fused_eval, **kw)
+        self.SetUpConv_1 = SetUpConv(_EMB, fine_channels, 8, (128, 64), (64,),
+                                     fused_eval=fused_eval, **kw)
         self.CostVolume_0 = CostVolume(fine_channels, fine_channels, nsample=4, nsample_q=6,
-                                       generator=g)
-        self.FlowPredictor_0 = FlowPredictor(fine_channels + 2 * _EMB, generator=g)
+                                       fused_eval=fused_eval, **kw)
+        self.FlowPredictor_0 = FlowPredictor(fine_channels + 2 * _EMB, **kw)
         if not last_level:
-            self.FlowPredictor_1 = FlowPredictor(fine_channels + 2 * _EMB, generator=g)
+            self.FlowPredictor_1 = FlowPredictor(fine_channels + 2 * _EMB, **kw)
         self.PoseCalculator_0 = PoseCalculator(_EMB, generator=g)
 
     def forward(self, xyz_f1, feat_f1, xyz_f2, feat_f2, xyz_prev, feat_prev, mask_prev,
@@ -134,8 +142,8 @@ class PWCLONetConfig:
         (64, 64, 128),
     )
     bn_momentum_init: float = 0.5  # scheduled by the trainer
-    compute_dtype: str = "float32"  # only float32 is ported
-    fused_eval: bool = False  # the fused eval kernels are not ported yet
+    compute_dtype: str = "float32"  # "bfloat16" puts the unfused MLP matmuls on bf16
+    fused_eval: bool = False  # eval: one kernel per MLP + max-pool and per aggregate
 
 
 def scaled_model_config(num_points: int, **overrides) -> PWCLONetConfig:
@@ -165,32 +173,30 @@ class PWCLONet(nn.Module):
     def __init__(self, config: PWCLONetConfig = PWCLONetConfig(), seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if config.fused_eval:
-            raise NotImplementedError(
-                "fused_eval=True is not ported: the fused MLP and cost-volume kernels "
-                "are the next slice of ROADMAP.md"
-            )
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={config.compute_dtype!r}: only float32 is ported")
+        if config.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}, "
+                             f"got {config.compute_dtype!r}")
         device = resolve_device(device)
         self.config = config
         g = torch.Generator().manual_seed(seed)
+        kw = dict(generator=g, dtype=_COMPUTE_DTYPES[config.compute_dtype])
+        fused = config.fused_eval
         mlps = config.sa_mlps
         for i in range(4):
             self.add_module(
                 f"SetConv_{i}",
                 SetConv(None if i == 0 else mlps[i - 1][-1], config.sa_npoints[i],
-                        config.sa_nsamples[i], mlps[i], generator=g),
+                        config.sa_nsamples[i], mlps[i], fused_eval=fused, **kw),
             )
         c1, c2, c3, c4 = (m[-1] for m in mlps)
-        self.CostVolume_0 = CostVolume(c3, c3, nsample=4, nsample_q=32, generator=g)
+        self.CostVolume_0 = CostVolume(c3, c3, nsample=4, nsample_q=32, fused_eval=fused, **kw)
         self.SetConv_4 = SetConv(_EMB, config.sa_npoints[3], config.sa_nsamples[3],
-                                 (128, 64, 64), generator=g)
-        self.FlowPredictor_0 = FlowPredictor(c4 + _EMB, generator=g)
+                                 (128, 64, 64), fused_eval=fused, **kw)
+        self.FlowPredictor_0 = FlowPredictor(c4 + _EMB, **kw)
         self.PoseCalculator_0 = PoseCalculator(_EMB, generator=g)
-        self.PoseWarpRefinement_0 = PoseWarpRefinement(c3, generator=g)
-        self.PoseWarpRefinement_1 = PoseWarpRefinement(c2, generator=g)
-        self.PoseWarpRefinement_2 = PoseWarpRefinement(c1, last_level=True, generator=g)
+        self.PoseWarpRefinement_0 = PoseWarpRefinement(c3, fused_eval=fused, **kw)
+        self.PoseWarpRefinement_1 = PoseWarpRefinement(c2, fused_eval=fused, **kw)
+        self.PoseWarpRefinement_2 = PoseWarpRefinement(c1, last_level=True, fused_eval=fused, **kw)
         self.to(device)
         self.eval()
 

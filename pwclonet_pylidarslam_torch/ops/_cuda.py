@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one
-process per source, all started together) and linked into one shared
-library with a plain C interface, which is loaded with ``ctypes``. The
-library lives in ``build/`` beside the package (listed in ``.gitignore``)
-and is named by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is not. Nothing here runs when the module is
-imported: the CPU tests import it on machines with no ``nvcc``.
+At first use every ``csrc/*.cu`` (with the ``*.cuh`` it includes) is
+compiled by ``nvcc`` for ``sm_90a`` (one process per source, all started
+together) and linked into one shared library with a plain C interface,
+which is loaded with ``ctypes``. The library lives in ``build/`` beside the
+package (listed in ``.gitignore``) and is named by a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is not. Nothing
+here runs when the module is imported: the CPU tests import it on machines
+with no ``nvcc``.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0 and counts
@@ -32,11 +33,15 @@ BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # products and sums rounded one by one, as the plain versions round them
-    "--fmad=false",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# products and sums rounded one by one, as the plain versions round them:
+# these kernels are held to the bit
+_EXACT = ("--fmad=false",)
+# flags of one source beside NVCC_FLAGS; a source not named here is held to a
+# tolerance and may contract its multiply-adds
+SOURCE_FLAGS = {"fps.cu": _EXACT, "knn.cu": _EXACT, "gather.cu": _EXACT}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (all return a cudaError_t as int)
@@ -44,10 +49,20 @@ _SIGNATURES = {
     "pwclo_fps": (_P, _P, _I, _I, _I, _P, _P),
     "pwclo_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # x, params, centres, k, n_layers, c0..c3, out, stream
+    "pwclo_mlp_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att params,
+    # centres, k, cc, cg, then per stack (n, w1, w2, w3) x 3,
+    # att_includes_center, out, stream
+    "pwclo_attentive_aggregate": (_P,) * 7 + (_I,) * 17 + (_P, _P),
 }
 
+# what an entry point returns, beside CUDA's own error codes, for a shape
+# its kernel does not take (kUnsupportedShape in csrc/dense_tile.cuh)
+UNSUPPORTED_SHAPE = -1
+
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"fps": 0, "knn": 0, "gather": 0}
+LAUNCHES = {"fps": 0, "knn": 0, "gather": 0, "mlp_maxpool": 0, "attentive_aggregate": 0}
 
 _lib = None
 
@@ -73,8 +88,11 @@ def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library; returns its path."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     for src in sources:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
+        digest.update(" ".join(SOURCE_FLAGS.get(src.name, ())).encode() + b"\0")
     digest.update(" ".join(NVCC_FLAGS).encode())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libpwclo_kernels_{tag}.so"
@@ -85,7 +103,7 @@ def build() -> Path:
     jobs = []
     for src in sources:
         obj = BUILD_DIR / f"{src.stem}_{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", str(src), "-o", str(obj)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, obj, proc))
     logs, failed = [], []
@@ -137,6 +155,9 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         err = fn(*args)
+    if err == UNSUPPORTED_SHAPE:
+        raise ValueError(f"{entry}: the kernel does not take this shape (layer counts, widths "
+                         "that do not chain, or a tile of K rows too large for shared memory)")
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1

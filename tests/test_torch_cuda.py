@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from pwclonet_pylidarslam_torch import ops
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops import fps as tfps
 from pwclonet_pylidarslam_torch.ops import gather as tgather
+from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain
 from pwclonet_pylidarslam_torch.ops.knn import knn, knn_plain
+from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain
 
 
 @pytest.fixture
@@ -54,16 +57,109 @@ def test_gather_kernel_matches_plain(cuda_device, rng, c):
                                tgather.gather_points_plain(src, idx), rtol=0, atol=0)
 
 
+def _stack(rng, cin, widths, device):
+    """Random folded ``(weights, biases)`` of a stack on ``device``."""
+    ws, bs = [], []
+    for cout in widths:
+        ws.append(torch.from_numpy(
+            (rng.normal(size=(cin, cout)) / np.sqrt(cin)).astype(np.float32)).to(device))
+        bs.append(torch.from_numpy((rng.normal(size=cout) * 0.3).astype(np.float32)).to(device))
+        cin = cout
+    return tuple(ws), tuple(bs)
+
+
+def _rand(rng, device, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+
+@pytest.fixture
+def full_fp32():
+    """The plain versions' matmuls in full float32, as the kernels compute."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+# main-path shapes, then odd ones: K not a power of two, widths that are no
+# multiple of the thread tile, a last tile of fewer centres, one layer
 @pytest.mark.cuda
-def test_launches_are_counted_and_bad_input_raises(cuda_device):
+@pytest.mark.parametrize("b,s,k,cin,widths", [
+    (1, 2048, 32, 6, (8, 8, 16)), (1, 1024, 32, 19, (16, 16, 32)), (1, 256, 16, 35, (32, 32, 64)),
+    (1, 64, 16, 67, (64, 64, 128)), (1, 64, 16, 67, (128, 64, 64)), (1, 2048, 8, 67, (128, 64)),
+    (9, 1024, 8, 67, (128, 64)), (2, 333, 6, 11, (16, 9, 33)), (3, 7, 5, 3, (5,)),
+    (1, 5, 100, 20, (40, 24)),
+])
+def test_mlp_maxpool_kernel_matches_plain(cuda_device, full_fp32, rng, b, s, k, cin, widths):
+    x = _rand(rng, cuda_device, b, s, k, cin)
+    ws, bs = _stack(rng, cin, widths, cuda_device)
+    out = ops.mlp_maxpool(x, ws, bs)
+    torch.cuda.synchronize()
+    # sums of up to 128 products in another order than the library's
+    torch.testing.assert_close(out, mlp_maxpool_plain(x, ws, bs), atol=3e-5, rtol=1e-4)
+    # the packed views of PointMLP.folded() launch without a copy, same result
+    from pwclonet_pylidarslam_torch.ops.mlp import fold_stack
+    ones = [torch.ones(w.shape[1], device=cuda_device) for w in ws]
+    zeros = [torch.zeros_like(o) for o in ones]
+    layers = [(w, o, bias, z, o - 1e-5) for w, o, bias, z in zip(ws, ones, bs, zeros)]
+    torch.testing.assert_close(ops.mlp_maxpool(x, *fold_stack(layers)), out, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,k,cc,cg,emb,att,center", [
+    (1, 256, 32, 64, 64, (128, 64, 64), (128, 64), False),  # level-3 cross
+    (1, 256, 4, 64, 64, None, (128, 64), True),  # level-3 self
+    (1, 1024, 6, 32, 32, (128, 64, 64), (128, 64), False),
+    (1, 2048, 6, 16, 16, (128, 64, 64), (128, 64), False),
+    (1, 2048, 4, 16, 64, None, (128, 64), True),
+    (9, 1024, 4, 32, 64, None, (128, 64), True),
+    (2, 341, 6, 16, 16, (48, 33), (20, 33), False),  # odd widths, ragged last tile
+    (2, 37, 7, 5, 12, None, (12,), True),
+    (1, 9, 40, 8, 8, (16,), (16,), True),  # K above the row target: one centre per block
+])
+def test_attentive_aggregate_kernel_matches_plain(cuda_device, full_fp32, rng, b, s, k, cc, cg,
+                                                  emb, att, center):
+    cxyz = _rand(rng, cuda_device, b, s, 3, scale=10.0)
+    gxyz = cxyz[:, :, None, :] + _rand(rng, cuda_device, b, s, k, 3)
+    cfeat, gfeat = _rand(rng, cuda_device, b, s, cc), _rand(rng, cuda_device, b, s, k, cg)
+    d = emb[-1] if emb else cg
+    enc_wb = _stack(rng, 10, (d,), cuda_device)
+    emb_wb = _stack(rng, 10 + cc + cg, emb, cuda_device) if emb else None
+    att_wb = _stack(rng, d + (cc if center else 0) + d, att, cuda_device)
+    args = (cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center)
+    out = ops.attentive_aggregate(*args)
+    torch.cuda.synchronize()
+    # sums of up to 192 products in another order than the library's
+    torch.testing.assert_close(out, attentive_aggregate_plain(*args), atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     _cuda.reset_launch_counts()
     pts = torch.rand(1, 64, 3, device=cuda_device) + 0.1
     idx = tfps.furthest_point_sample(pts, 8)
     tgather.gather_points(pts, idx)
     knn(pts, pts, 4)
-    assert _cuda.launch_counts() == {"fps": 1, "knn": 1, "gather": 1}
+    x = torch.rand(1, 8, 4, 6, device=cuda_device)
+    wb = _stack(rng, 6, (8,), cuda_device)
+    ops.mlp_maxpool(x, *wb)
+    agg = (pts[:, :8], pts[:, :32].reshape(1, 8, 4, 3), x[:, :, 0], x,
+           _stack(rng, 10, (6,), cuda_device), None, _stack(rng, 6 + 6 + 6, (6,), cuda_device), True)
+    ops.attentive_aggregate(*agg)
+    once = {"fps": 1, "knn": 1, "gather": 1, "mlp_maxpool": 1, "attentive_aggregate": 1}
+    assert _cuda.launch_counts() == once
     with pytest.raises(TypeError):
         tgather.gather_points(pts.double(), idx)
     with pytest.raises(ValueError):
         knn(pts, pts, 33)  # above the kernel's sorted-list size
-    assert _cuda.launch_counts() == {"fps": 1, "knn": 1, "gather": 1}
+    with pytest.raises(TypeError):
+        ops.mlp_maxpool(x.double(), *wb)
+    with pytest.raises(ValueError):
+        ops.mlp_maxpool(x, *_stack(rng, 7, (8,), cuda_device))  # Cin does not chain
+    with pytest.raises(ValueError):  # a tile of K rows that no block's shared memory holds
+        ops.mlp_maxpool(torch.rand(1, 2, 4096, 6, device=cuda_device), *wb)
+    with pytest.raises(ValueError):  # attention width differs from the embedding's
+        ops.attentive_aggregate(*agg[:6], _stack(rng, 18, (5,), cuda_device), True)
+    with pytest.raises(ValueError):  # parameters left on the CPU
+        ops.mlp_maxpool(x, *_stack(rng, 6, (8,), "cpu"))
+    assert _cuda.launch_counts() == once

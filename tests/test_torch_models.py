@@ -123,9 +123,16 @@ def small_net():
     return jnet, vs, x1, x2
 
 
-def test_pwclonet_forward(small_net):
+@pytest.fixture(scope="module")
+def small_net_reference(small_net):
+    """The reference's unfused eval forward of ``small_net``, computed once."""
     jnet, vs, x1, x2 = small_net
-    ref_params, ref_aux = _apply(jnet, vs, x1, x2)
+    return _apply(jnet, vs, x1, x2)
+
+
+def test_pwclonet_forward(small_net, small_net_reference):
+    jnet, vs, x1, x2 = small_net
+    ref_params, ref_aux = small_net_reference
     net = load_flax_variables(PWCLONet(PWCLONetConfig(**SMALL), device="cpu"), vs)
     with torch.inference_mode():
         params, aux = net(torch.from_numpy(x1), torch.from_numpy(x2))
@@ -134,6 +141,75 @@ def test_pwclonet_forward(small_net):
     np.testing.assert_allclose(aux["embedding_mask"].numpy(), np.asarray(ref_aux["embedding_mask"]),
                                atol=1e-4, rtol=1e-3)
     np.testing.assert_array_equal(aux["point_cloud"].numpy(), np.asarray(ref_aux["point_cloud"]))
+
+
+def _forward(net, x1, x2):
+    with torch.inference_mode():
+        params, aux = net(torch.from_numpy(x1), torch.from_numpy(x2))
+    return params.numpy(), aux["embedding_mask"].numpy()
+
+
+def test_pwclonet_fused_forward(small_net, small_net_reference):
+    """``fused_eval=True`` (plain versions of the fused blocks on the CPU)
+    against the reference's unfused forward, at the reference's own bar for
+    its fused network."""
+    _, vs, x1, x2 = small_net
+    ref_params, ref_aux = small_net_reference
+    net = load_flax_variables(PWCLONet(PWCLONetConfig(**SMALL, fused_eval=True), device="cpu"), vs)
+    params, mask = _forward(net, x1, x2)
+    assert params.shape == (2, 4, 7)
+    np.testing.assert_allclose(params, np.asarray(ref_params), atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(mask, np.asarray(ref_aux["embedding_mask"]), atol=1e-4, rtol=1e-3)
+
+
+def test_pwclonet_fused_forward_against_reference_fused(small_net):
+    """Against the reference's own ``fused_eval=True`` forward (its Pallas
+    kernels in interpret mode)."""
+    _, vs, x1, x2 = small_net
+    ref_params, _ = _apply(JPWCLONet(JPWCLONetConfig(**SMALL, fused_eval=True)), vs, x1, x2)
+    net = load_flax_variables(PWCLONet(PWCLONetConfig(**SMALL, fused_eval=True), device="cpu"), vs)
+    np.testing.assert_allclose(_forward(net, x1, x2)[0], np.asarray(ref_params), atol=1e-4, rtol=1e-3)
+
+
+def test_state_dict_loads_into_fused_and_unfused(small_net):
+    """One set of weights serves both configurations: same keys, same shapes."""
+    _, vs, x1, x2 = small_net
+    base = load_flax_variables(PWCLONet(PWCLONetConfig(**SMALL), device="cpu"), vs)
+    fused = PWCLONet(PWCLONetConfig(**SMALL, fused_eval=True), seed=5, device="cpu")
+    assert list(fused.state_dict()) == list(base.state_dict())
+    assert len(flatten_variables(vs)) == len(fused.state_dict()) == 429
+    fused.load_state_dict(base.state_dict())
+    out, ref = _forward(fused, x1, x2), _forward(base, x1, x2)
+    np.testing.assert_allclose(out[0], ref[0], atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(out[1], ref[1], atol=1e-4, rtol=1e-3)
+
+
+def test_fused_net_follows_weights_written_in_place(small_net):
+    """No stale fold: after ``load_flax_variables`` overwrites the weights of
+    a fused model that has already run, it computes with the new ones."""
+    _, vs, x1, x2 = small_net
+    seeded = PWCLONet(PWCLONetConfig(**SMALL), seed=2, device="cpu")
+    fused = PWCLONet(PWCLONetConfig(**SMALL, fused_eval=True), seed=2, device="cpu")
+    before = _forward(fused, x1, x2)[0]  # folds the seeded weights
+    np.testing.assert_allclose(before, _forward(seeded, x1, x2)[0], atol=1e-4, rtol=1e-3)
+    load_flax_variables(fused, vs)
+    after = _forward(fused, x1, x2)[0]
+    base = load_flax_variables(PWCLONet(PWCLONetConfig(**SMALL), device="cpu"), vs)
+    np.testing.assert_allclose(after, _forward(base, x1, x2)[0], atol=1e-4, rtol=1e-3)
+    assert np.abs(after - before).max() > 1e-2
+
+
+def test_pwclonet_bfloat16_forward(small_net):
+    """``compute_dtype="bfloat16"`` runs, fused or not, and gives finite
+    float32 poses with unit quaternions near the float32 ones."""
+    _, vs, x1, x2 = small_net
+    ref = _forward(load_flax_variables(PWCLONet(PWCLONetConfig(**SMALL), device="cpu"), vs), x1, x2)[0]
+    for fused in (False, True):
+        cfg = PWCLONetConfig(**SMALL, compute_dtype="bfloat16", fused_eval=fused)
+        params = _forward(load_flax_variables(PWCLONet(cfg, device="cpu"), vs), x1, x2)[0]
+        assert params.dtype == np.float32 and np.isfinite(params).all()
+        np.testing.assert_allclose(np.linalg.norm(params[..., 3:], axis=-1), 1.0, atol=1e-5)
+        assert 0 < np.abs(params - ref).max() < 0.5
 
 
 def test_converter_consumes_every_leaf(small_net):
@@ -191,7 +267,9 @@ def test_eval_only_and_unported_options_raise():
     x = torch.zeros(1, 256, 3)
     with pytest.raises(NotImplementedError, match="training slice"):
         net(x, x, train=True)
-    with pytest.raises(NotImplementedError, match="fused_eval"):
-        PWCLONet(PWCLONetConfig(**SMALL, fused_eval=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        PWCLONet(PWCLONetConfig(**SMALL, compute_dtype="bfloat16"), device="cpu")
+    for cfg in (PWCLONetConfig(**SMALL, fused_eval=True),
+                PWCLONetConfig(**SMALL, compute_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="training slice"):
+            PWCLONet(cfg, device="cpu")(x, x, train=True)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PWCLONet(PWCLONetConfig(**SMALL, compute_dtype="float16"), device="cpu")

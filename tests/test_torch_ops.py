@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from pwclonet_pylidarslam_torch import ops
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops import fps as tfps
 from pwclonet_pylidarslam_torch.ops import gather as tgather
+from pwclonet_pylidarslam_torch.ops.costvolume import _attentive_aggregate_cuda
 from pwclonet_pylidarslam_torch.ops.knn import _knn_cuda, knn, knn_plain
+from pwclonet_pylidarslam_torch.ops.mlp import _mlp_maxpool_cuda
 from pwclonet_pylidarslam_tpu import ops as jops
 from pwclonet_pylidarslam_tpu.ops.fps import _furthest_point_sample_lax
 
@@ -125,7 +128,14 @@ def test_cpu_tensors_take_the_plain_path(rng):
     idx = tfps.furthest_point_sample(pts, 8)
     tgather.gather_points(pts, idx)
     knn(pts, pts, 4)
-    assert _cuda.launch_counts() == {"fps": 0, "knn": 0, "gather": 0}
+    x = torch.from_numpy(rng.normal(size=(1, 8, 4, 3)).astype(np.float32))
+    one = ((torch.ones(3, 3),), (torch.zeros(3),))
+    ops.mlp_maxpool(x, *one)
+    enc = ((torch.ones(10, 3),), (torch.zeros(3),))
+    att = ((torch.ones(9, 3),), (torch.zeros(3),))
+    ops.attentive_aggregate(pts[:, :8], x, pts[:, :8], x, enc, None, att, True)
+    assert _cuda.launch_counts() == {
+        "fps": 0, "knn": 0, "gather": 0, "mlp_maxpool": 0, "attentive_aggregate": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -137,3 +147,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         _knn_cuda(pts, pts, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tgather._gather_points_cuda(pts, torch.zeros(1, 4, dtype=torch.int32))
+    x = torch.zeros(1, 8, 4, 3)
+    one = ((torch.ones(3, 3),), (torch.zeros(3),))
+    with pytest.raises(ValueError, match="CUDA"):
+        _mlp_maxpool_cuda(x, *one)
+    with pytest.raises(ValueError, match="CUDA"):
+        _attentive_aggregate_cuda(pts, x, pts, x, ((torch.ones(10, 3),), (torch.zeros(3),)),
+                                  None, ((torch.ones(9, 3),), (torch.zeros(3),)), True)
