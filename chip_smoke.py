@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of PWCLO-Net odometry on one NVIDIA GPU and check it.
+"""Run the PyTorch port of PWCLO-Net odometry and training on one NVIDIA GPU
+and check it.
 
     python3 chip_smoke.py [--profile]
 
@@ -14,10 +15,17 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    distances tie within 1e-5, gather bit-exact, the fused MLP + max-pool
    within atol 3e-5 / rtol 1e-4 and the fused attentive aggregate within
    atol 5e-5 / rtol 1e-4 (both sum in another order than the library's
-   matmul), on weights folded from perturbed BatchNorm statistics;
+   matmul), on weights folded from perturbed BatchNorm statistics; the
+   scatter-add (the gather's backward) at the batch-8 shapes of a train
+   step's backward, within 1e-5 of the largest segment's sum of magnitudes
+   of the plain version (whose float atomics add in another order) and
+   bit-equal to a second launch;
 3. run the small config (256 points) on the card and on the CPU with the
    same seeded weights and inputs, and with ``fused_eval=True`` on the card
    against the unfused card run: pose params within atol 1e-4 / rtol 1e-3;
+   then one train-mode forward + backward (dropout off) on the card against
+   the CPU from the same state: loss within rtol 1e-5, every gradient leaf
+   within atol 1e-4 + 1e-3 of the leaf's largest magnitude;
 4. drive the main path at full width (the default ``PWCLONetConfig``: 8192
    points, the reference channel plan, float32, seeded random weights) over
    a corridor sequence from the port's own generator, once with
@@ -29,7 +37,19 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    unfused path launches neither fused kernel); the poses must be finite
    SE(3). One full-width forward with ``compute_dtype="bfloat16"`` must give
    finite unit-quaternion poses;
-5. time the forward at B=1 (unfused, fused, fused, unfused in turns),
+5. train at full width through ``PWCLONetTrainer`` on the card (batch 8, 8192
+   points, float32, the random-cloud batches of ``train_net_torch.py``): six
+   steps of ``train_epoch`` with the counters zeroed before and read after
+   (FPS 9, kNN 23, gather 32 and scatter-add 20 launches a step, the fused
+   kernels none), every loss and gradient norm finite, no step skipped; the
+   same step from the same state and generator twice gives bit-identical
+   gradients; the checkpoint loads into a fused ``PWCLONetOdometry``, which
+   gives finite SE(3) poses; then the fast-lane learning recipe (small
+   config, 40 epochs) on the card: losses fall, relative-pose RMSE under
+   0.40 of the per-frame travel and under 0.6 of the untrained net's;
+6. time the train step (CUDA events around each of six steps, forward and
+   backward apart, device launches of one profiled step, peak memory), the
+   forward at B=1 (unfused, fused, fused, unfused in turns),
    ``process_sequence``, and each kernel beside its plain version, one
    PyTorch library call where one computes the same function, and its bound
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM's
@@ -40,8 +60,9 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if CUDA is unavailable or any check
-fails. ``--profile`` profiles one full-width forward of each configuration:
-a table on stderr, and device time, launches and idle share in the metrics.
+fails. ``--profile`` profiles one full-width forward of each configuration
+and prints the tables of those and of the train step on stderr; device time
+by kernel, launches and idle share go into the metrics.
 """
 
 from __future__ import annotations
@@ -54,6 +75,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,10 +98,17 @@ from pwclonet_pylidarslam_torch.ops import gather as tgather  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.knn import knn, knn_plain, pairwise_sqdist  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain  # noqa: E402
+from pwclonet_pylidarslam_torch.models.layers import discard_batch_stats  # noqa: E402
+from pwclonet_pylidarslam_torch.models.pwclonet import PoseCalculator  # noqa: E402
 from pwclonet_pylidarslam_torch.slam.deep_odometry import (  # noqa: E402
     DeepOdometryConfig,
     PWCLONetOdometry,
 )
+from pwclonet_pylidarslam_torch.train import state as tstate  # noqa: E402
+from pwclonet_pylidarslam_torch.train.fast_lane import run_fast_lane_recipe  # noqa: E402
+from pwclonet_pylidarslam_torch.train.losses import pwclonet_loss  # noqa: E402
+from pwclonet_pylidarslam_torch.train.trainer import PWCLONetTrainer, TrainerConfig  # noqa: E402
+import train_net_torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores, published
@@ -90,9 +119,18 @@ FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores, published
 # with fused_eval, mlp_maxpool: 1 per SetConv x 9 and per SetUpConv x 6;
 # attentive_aggregate: 2 per cost volume x 4.
 LAUNCHES_PER_FORWARD = {
-    False: {"fps": 9, "knn": 23, "gather": 32, "mlp_maxpool": 0, "attentive_aggregate": 0},
-    True: {"fps": 9, "knn": 23, "gather": 32, "mlp_maxpool": 15, "attentive_aggregate": 8},
+    False: {"fps": 9, "knn": 23, "gather": 32, "scatter_add": 0, "mlp_maxpool": 0,
+            "attentive_aggregate": 0},
+    True: {"fps": 9, "knn": 23, "gather": 32, "scatter_add": 0, "mlp_maxpool": 15,
+           "attentive_aggregate": 8},
 }
+# a train step takes the unfused graph. Of its 32 gathers, 20 have a source
+# that requires grad and an output that the loss reads: the groupings of the
+# pyramid SetConvs above level 1 (3 of frame 1, 2 of frame 2: nothing reads
+# the level-4 features of frame 2), the flow-embedding SetConv, 2 per cost
+# volume x 4 and 1 per SetUpConv x 6. Each runs one scatter-add in the backward.
+LAUNCHES_PER_TRAIN_STEP = {"fps": 9, "knn": 23, "gather": 32, "scatter_add": 20,
+                           "mlp_maxpool": 0, "attentive_aggregate": 0}
 KERNELS = {
     "fps": ("pwclonet_pylidarslam_torch/csrc/fps.cu",
             "pwclonet_pylidarslam_tpu/ops/pallas/fps_kernel.py:116"),
@@ -100,6 +138,8 @@ KERNELS = {
             "pwclonet_pylidarslam_tpu/ops/pallas/knn_kernel.py:103"),
     "gather": ("pwclonet_pylidarslam_torch/csrc/gather.cu",
                "pwclonet_pylidarslam_tpu/ops/pallas/gather_kernel.py:58"),
+    "scatter_add": ("pwclonet_pylidarslam_torch/csrc/scatter_add.cu",
+                    "pwclonet_pylidarslam_tpu/ops/pallas/gather_kernel.py:107"),
     "mlp_maxpool": ("pwclonet_pylidarslam_torch/csrc/mlp_maxpool.cu",
                     "pwclonet_pylidarslam_tpu/ops/pallas/mlp_kernel.py:61"),
     "attentive_aggregate": ("pwclonet_pylidarslam_torch/csrc/attentive_aggregate.cu",
@@ -107,6 +147,8 @@ KERNELS = {
 }
 N_FRAMES = 10  # corridor sequence: 9 pairs one by one, then 9 in one batch
 N_FRAMES_UNFUSED = 4  # the unfused path runs over the first frames only
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6  # one epoch of the full-width training drive
 SMALL = PWCLONetConfig(num_points=256, sa_npoints=(64, 32, 16, 8), sa_nsamples=(8, 8, 8, 4))
 
 
@@ -252,6 +294,55 @@ def gather_case(src: torch.Tensor, idx: torch.Tensor) -> dict:
     }
 
 
+def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: str) -> dict:
+    """``idx (B, S, K)``: a grouping's neighbour indices into ``n`` source
+    rows; the incoming gradient is random, ``(B, S*K, c)``."""
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1).contiguous()
+    m = flat.shape[1]
+    upd = torch.randn(b, m, c, device=idx.device, generator=gen)
+    out = tgather.scatter_add_rows(upd, flat, n)
+    again = tgather.scatter_add_rows(upd, flat, n)
+    ref = tgather.scatter_add_rows_plain(upd, flat, n)
+    torch.cuda.synchronize()
+    name = f"B={b} N={n} M={m} C={c} ({what})"
+    check(torch.equal(out, again), f"scatter_add {name}: two launches agree to the bit")
+    # the plain version's float atomics add in an order of their own: the
+    # rounding of a sum is bounded by its terms' magnitudes
+    scale = tgather.scatter_add_rows_plain(upd.abs(), flat, n).max().item()
+    err = (out - ref).abs().max().item()
+    longest = int(tgather.scatter_add_rows_plain(torch.ones_like(upd[..., :1]), flat, n).max())
+    check(err <= 1e-5 * max(scale, 1.0),
+          f"scatter_add {name}: within 1e-5 x {scale:.3g} of plain (max {err:.3g}, "
+          f"longest segment {longest})")
+    nbytes = 4 * (upd.numel() + flat.numel() + out.numel())
+    bnd, by = bound_ms(nbytes, float(upd.numel()))  # one add per update element
+    rows = (flat.long() + n * torch.arange(b, device=idx.device)[:, None]).reshape(-1)
+    upd2d = upd.reshape(b * m, c)
+    return {
+        "shape": name, "max_abs_err": err, "longest_segment": longest,
+        "bound_ms": bnd, "bound_by": by,
+        # library: index_add_ into fresh zeros, the flat int64 rows precomputed
+        **kernel_times(lambda: tgather.scatter_add_rows(upd, flat, n),
+                       lambda: tgather.scatter_add_rows_plain(upd, flat, n),
+                       lambda: upd.new_zeros((b * n, c)).index_add_(0, rows, upd2d), 50, 20),
+    }
+
+
+def scatter_cases(frames: torch.Tensor) -> list:
+    """The scatter-add at shapes of a full-width train step's backward:
+    ``frames (8, 8192, 3)``, eight prepared scans, give the real neighbour
+    sets (and their skew) of the groupings."""
+    gen = torch.Generator(device=frames.device).manual_seed(1)
+    l1 = tgather.gather_points(frames, tfps.furthest_point_sample(frames, 2048))
+    l2 = tgather.gather_points(l1, tfps.furthest_point_sample(l1, 1024))
+    return [
+        scatter_case(gen, knn(l2, l1, 32)[1], 2048, 19, "level-2 SetConv grouping"),
+        scatter_case(gen, knn(l1, l2, 8)[1], 1024, 67, "level-1 SetUpConv grouping"),
+        scatter_case(gen, knn(l1, l1, 4)[1], 2048, 67, "level-1 cost-volume self grouping"),
+    ]
+
+
 def folded_stack(gen: torch.Generator, cin: int, widths: tuple) -> tuple:
     """Folded ``(weights, biases)`` of a seeded ``PointMLP`` whose BatchNorm
     scale, bias and running statistics are perturbed, so the fold matters."""
@@ -352,8 +443,9 @@ def fused_kernel_cases() -> dict:
     return {"mlp_maxpool": mlp, "attentive_aggregate": aggregate}
 
 
-def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor) -> dict:
-    """``scan``/``scan2``: two prepared full-width frames ``(1, 8192, 3)``."""
+def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) -> dict:
+    """``scan``/``scan2``: two prepared full-width frames ``(1, 8192, 3)``;
+    ``frames``: eight of them, for the scatter-add's batch-8 shapes."""
     cases = {"fps": [], "knn": [], "gather": []}
     cases["fps"].append(fps_case(scan, 2048))
     l1 = tgather.gather_points(scan, tfps.furthest_point_sample(scan, 2048))  # (1, 2048, 3)
@@ -370,6 +462,7 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor) -> dict:
     gen = torch.Generator(device=scan.device).manual_seed(0)
     wide = torch.randn(1, 8192, 67, device=scan.device, generator=gen)
     cases["gather"].append(gather_case(wide, flat))
+    cases["scatter_add"] = scatter_cases(frames)
     cases.update(fused_kernel_cases())
     return cases
 
@@ -405,6 +498,44 @@ def small_config_phase(scans: np.ndarray) -> dict:
     check(ok, "small config: fused vs unfused on the card within atol 1e-4 rtol 1e-3 "
           f"(max {fused_err:.3g})")
     return {"small_config_max_abs_err": err, "small_config_fused_vs_unfused_max_abs_err": fused_err}
+
+
+def _dropout_off(model) -> None:
+    for m in model.modules():
+        if isinstance(m, PoseCalculator):
+            m.dropout_rate = 0.0
+
+
+def small_train_phase(scans: np.ndarray) -> dict:
+    """One train-mode forward + backward of the small config on the card
+    (gather and scatter-add kernels) against the CPU plain path (PyTorch's
+    own autograd of ``torch.gather``), same state, dropout off."""
+    cfg = tstate.TrainConfig(model=SMALL, total_steps=100)
+    cpu = tstate.create_train_state(cfg, seed=1, device="cpu")
+    gpu = tstate.create_train_state(cfg, seed=1, device="cuda")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    _dropout_off(cpu.model)
+    _dropout_off(gpu.model)
+    rng = np.random.default_rng(1)
+    pick = [rng.choice(scans.shape[1], 256, replace=False) for _ in range(4)]
+    batch = {
+        "xyz1": np.stack([scans[1][pick[0]], scans[2][pick[1]]]),
+        "xyz2": np.stack([scans[0][pick[2]], scans[1][pick[3]]]),
+        "gt_params": np.array([[1.0, 0.02, 0.0, 1.0, 0.0, 0.0, 0.0]] * 2, np.float32),
+    }
+    ref_loss, _, ref_grads = tstate.loss_and_grads(cfg, cpu, batch)
+    loss, _, grads = tstate.loss_and_grads(cfg, gpu, batch)
+    torch.cuda.synchronize()
+    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_err <= 1e-5, f"small config train step: card vs CPU loss within rtol 1e-5 "
+          f"({loss.item():.6f} vs {ref_loss.item():.6f})")
+    worst = 0.0
+    for name, ref in ref_grads.items():
+        gap = (grads[name].cpu() - ref).abs().max().item()
+        worst = max(worst, gap / (1e-4 + 1e-3 * ref.abs().max().item()))
+    check(worst <= 1.0, "small config train step: every gradient leaf within atol 1e-4 + 1e-3 of "
+          f"its largest magnitude (worst at {worst:.3g} of the bar, {len(ref_grads)} leaves)")
+    return {"small_train_loss_rel_err": loss_err, "small_train_grad_worst_share_of_bar": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -520,26 +651,122 @@ def profile_forward(label: str, odo: PWCLONetOdometry, scans: np.ndarray) -> dic
     device time by kernel, the count of device launches and the share of the
     span from the first kernel's start to the last one's end in which no
     kernel ran (with the profiler's own host overhead in it)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     prepared = np.stack([odo._prepare(s) for s in scans[:2]])
     x1 = torch.from_numpy(prepared[1:2]).cuda()
     x2 = torch.from_numpy(prepared[0:1]).cuda()
-    with torch.inference_mode():
-        # the first profile of a process can lose its earliest device events
-        # while the tracer starts up: profile twice, keep the second
-        for _ in range(2):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                odo.model(x1, x2)
-                torch.cuda.synchronize()
+
+    def forward():
+        with torch.inference_mode():
+            odo.model(x1, x2)
+
+    prof, device = profile_device_events(forward)
     print(f"profile of one {label} forward", file=sys.stderr)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25), file=sys.stderr)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     seen = {name: sum(1 for e in device if f"{name}_kernel" in e.name)
             for name in ("fps", "knn", "gather")}
     expected = {name: LAUNCHES_PER_FORWARD[False][name] for name in seen}
     check(seen == expected, f"profiler saw every FPS, kNN and gather launch of the {label} forward")
+    return summarize_device_events(device)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: training at full width, and the learning recipe
+# ---------------------------------------------------------------------------
+
+
+def train_path_phase(scans: np.ndarray, log_dir: str) -> dict:
+    """``PWCLONetTrainer`` on the card at full width: one epoch of
+    ``TRAIN_STEPS`` steps at batch ``TRAIN_BATCH``."""
+    cli = train_net_torch.Config(batch_size=TRAIN_BATCH, num_points=8192,
+                                 synthetic_batches=TRAIN_STEPS, log_dir=log_dir)
+    train_fn, _ = train_net_torch.make_batch_fns(cli)
+    cfg = tstate.TrainConfig(model=PWCLONetConfig(fused_eval=True), total_steps=1000)
+    trainer = PWCLONetTrainer(TrainerConfig(train=cfg, log_dir=log_dir, steps_per_dispatch=3))
+    state = trainer.state
+    check(all(p.is_cuda for p in state.trainable().values()),
+          "the trainer's model and loss parameters lie on the card by default")
+    _cuda.reset_launch_counts()
+    mean_loss = trainer.train_epoch(train_fn())
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    for name, per_step in LAUNCHES_PER_TRAIN_STEP.items():
+        if per_step:
+            check(counts[name] > 0,
+                  f"training path launched the {name} kernel ({counts[name]} times)")
+        check(counts[name] == per_step * TRAIN_STEPS,
+              f"training {name}: {per_step} launches per step x {TRAIN_STEPS} steps")
+    logs = trainer.last_epoch_logs
+    check(len(logs["loss"]) == TRAIN_STEPS and bool(np.isfinite(logs["loss"]).all())
+          and math.isfinite(mean_loss), f"every train loss finite ({logs['loss'].tolist()})")
+    check(not logs["skipped_nonfinite"].any() and int(state.optimizer.count) == TRAIN_STEPS,
+          "no step skipped: the optimizer applied every update")
+    check(bool(np.isfinite(logs["grad_norm"]).all()) and bool((logs["grad_norm"] > 0).all()),
+          f"gradient norms finite and non-zero ({logs['grad_norm'].tolist()})")
+    check(state.step == TRAIN_STEPS, f"the step counter stands at {TRAIN_STEPS}")
+
+    # the same step from the same state and generator, twice
+    batch = next(iter(train_fn()))
+    runs = []
+    for _ in range(2):
+        gen_state = state.generator.get_state()
+        _, _, grads = tstate.loss_and_grads(cfg, state, batch)
+        discard_batch_stats(state.model)
+        state.generator.set_state(gen_state)
+        runs.append(grads)
+    torch.cuda.synchronize()
+    check(all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]),
+          f"two identical train steps give bit-identical gradients ({len(runs[0])} leaves)")
+
+    path = trainer.save_checkpoint("final")
+    odo = PWCLONetOdometry(path, DeepOdometryConfig(model=PWCLONetConfig(fused_eval=True)))
+    check(all(torch.equal(v, odo.model.state_dict()[k])
+              for k, v in trainer.model.state_dict().items()),
+          "the checkpoint's weights and statistics are the odometry's")
+    odo.init()
+    for scan in scans[:3]:
+        odo.process_next_frame(scan)
+    check(is_se3(odo.absolute_poses()), "trained checkpoint in the fused odometry: finite SE(3) poses")
+    return {"launches": counts, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+            "losses": logs["loss"].tolist(), "grad_norms": logs["grad_norm"].tolist(),
+            "trainer": trainer, "batches": list(train_fn())}
+
+
+def learning_phase() -> dict:
+    """The fast-lane recipe on the card, held as on the CPU
+    (``tests/test_torch_learning.py``)."""
+    t0 = time.perf_counter()
+    r = run_fast_lane_recipe(device="cuda", epochs=40)
+    r["seconds"] = time.perf_counter() - t0
+    log(f"fast-lane recipe on the card: ratio {r['ratio']:.4f}, ATEs {r['ates']}, untrained "
+        f"{r['untrained_ate']:.4f}, losses {r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}, "
+        f"{r['steps']} steps in {r['seconds']:.1f} s")
+    check(all(math.isfinite(v) for v in r["losses"]) and r["losses"][-1] < r["losses"][0],
+          "learning recipe: losses finite and falling")
+    check(r["finite"], "learning recipe: finite poses on the held-out worlds")
+    check(r["ratio"] < 0.40, f"learning recipe: relative-pose RMSE / travel {r['ratio']:.4f} < 0.40")
+    check(r["ates"][0] < 0.6 * r["untrained_ate"],
+          f"learning recipe: trained ATE {r['ates'][0]:.4f} < 0.6 x untrained {r['untrained_ate']:.4f}")
+    return r
+
+
+def profile_device_events(fn):
+    """Run ``fn()`` under the profiler; returns ``(prof, device events)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # the first profile of a process can lose its earliest device events
+    # while the tracer starts up: profile twice, keep the second
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return prof, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def summarize_device_events(device: list) -> dict:
+    """Device time by kernel, launches, and the share of the span from the
+    first kernel's start to the last one's end in which no kernel ran (with
+    the profiler's own host overhead in it)."""
     by_name: dict = {}
     for e in device:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -548,13 +775,67 @@ def profile_forward(label: str, odo: PWCLONetOdometry, scans: np.ndarray) -> dic
     span_ms = (max(e.time_range.end for e in device)
                - min(e.time_range.start for e in device)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    ours = {name: sum(ms for k, (ms, _) in by_name.items() if f"{name}_kernel" in k)
+    # a scatter-add is four kernels: scatter_{count,scan,fill,sum}_kernel
+    ours = {name: sum(ms for k, (ms, _) in by_name.items()
+                      if ("scatter_" in k and "_kernel" in k and "gather" not in k
+                          if name == "scatter_add" else f"{name}_kernel" in k))
             for name in KERNELS}
     return {
         "device_ms": busy_ms, "span_ms": span_ms, "idle_share": 1.0 - busy_ms / span_ms,
         "device_launches": len(device), "device_ms_by_port_kernel": ours,
         "device_ms_everything_else": busy_ms - sum(ours.values()),
         "top_kernels": [{"name": k[:80], "ms": ms, "launches": n} for k, (ms, n) in top],
+    }
+
+
+def train_timing_phase(train: dict, show_table: bool) -> dict:
+    """Times of the full-width train step at batch ``TRAIN_BATCH``: CUDA
+    events around each of six whole steps; forward (with the loss) and
+    backward apart over three more; one profiled step for the device's
+    launches, time by kernel and idle share; peak memory over all of it."""
+    trainer, batches = train["trainer"], train["batches"]
+    cfg, state = trainer.config.train, trainer.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tstate.train_step(cfg, state, batches[0])  # warm
+    step_ms = []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        tstate.train_step(cfg, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    fwd_ms, bwd_ms = [], []
+    for batch in batches[:3]:
+        dev = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        marks[0].record()
+        pred, _ = state.model(dev["xyz1"], dev["xyz2"], train=True,
+                              bn_momentum=tstate.bn_momentum(cfg, state.step),
+                              generator=state.generator)
+        loss, _ = pwclonet_loss(state.loss_params, pred, dev["gt_params"], cfg.loss)
+        marks[1].record()
+        torch.autograd.grad(loss, list(state.trainable().values()))
+        marks[2].record()
+        torch.cuda.synchronize()
+        discard_batch_stats(state.model)
+        fwd_ms.append(marks[0].elapsed_time(marks[1]))
+        bwd_ms.append(marks[1].elapsed_time(marks[2]))
+    peak = torch.cuda.max_memory_allocated()
+    prof, device = profile_device_events(lambda: tstate.train_step(cfg, state, batches[0]))
+    check(len(device) > 0, "the profiler saw the train step's device events")
+    if show_table:
+        print("profile of one full-width train step", file=sys.stderr)
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30), file=sys.stderr)
+    step = statistics.median(step_ms)
+    return {
+        "train_step_ms": step, "train_step_ms_runs": step_ms,
+        "train_pairs_per_s": TRAIN_BATCH / step * 1e3,
+        "train_forward_ms": statistics.median(fwd_ms), "train_backward_ms": statistics.median(bwd_ms),
+        "train_peak_memory_bytes": peak, "train_step_profile": summarize_device_events(device),
     }
 
 
@@ -600,14 +881,15 @@ def main() -> int:
     }
     check(all(p.is_cuda for odo in odos.values() for p in odo.model.parameters()),
           "the odometry's model lies on the card by default")
-    scan0 = torch.from_numpy(odos["fused"]._prepare(scans[0])[None]).cuda()
-    scan1 = torch.from_numpy(odos["fused"]._prepare(scans[1])[None]).cuda()
+    frames = torch.from_numpy(
+        np.stack([odos["fused"]._prepare(s) for s in scans[:TRAIN_BATCH]])).cuda()
+    scan0, scan1 = frames[0:1], frames[1:2]
 
     log("phase 2: kernels against their plain versions")
-    cases = kernel_phase(scan0, scan1)
+    cases = kernel_phase(scan0, scan1, frames)
 
-    log("phase 3: small config, card against CPU and fused against unfused")
-    small = small_config_phase(scans)
+    log("phase 3: small config, card against CPU, fused against unfused, one train step")
+    small = {**small_config_phase(scans), **small_train_phase(scans)}
 
     log("phase 4: the main path at full width, fused and unfused")
     main = {
@@ -621,7 +903,14 @@ def main() -> int:
     log(f"fused vs unfused pose chains over {N_FRAMES_UNFUSED} frames: max gap {fused_gap:.3g}")
     bfloat16_forward(scan1, scan0)
 
-    log("phase 5: times")
+    log("phase 5: training at full width, then the learning recipe")
+    with tempfile.TemporaryDirectory() as log_dir:
+        train = train_path_phase(scans, log_dir)
+    learning = learning_phase()
+
+    log("phase 6: times")
+    train_times = train_timing_phase(train, show_table=args.profile)
+    del train["trainer"], train["batches"]
     times = timing_phase(odos, scans)
     profiles = {}
     if args.profile:
@@ -632,8 +921,11 @@ def main() -> int:
         head = cases[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main["fused"]["launches"][name],
+            # of the path that runs the kernel: the fused eval drive, or the
+            # training drive for the gather's backward
+            "launches": (train if name == "scatter_add" else main["fused"])["launches"][name],
             "launches_unfused_path": main["unfused"]["launches"][name],
+            "launches_train_path": train["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
@@ -645,10 +937,13 @@ def main() -> int:
         "configs": {
             "fused": f"PWCLONetConfig(fused_eval=True) full width: {width}",
             "unfused": f"PWCLONetConfig() full width: {width}",
+            "train": f"PWCLONetTrainer, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, full width: "
+                     "8192 points, reference channel plan, float32, random-cloud batches",
         },
         "build_s": build_s, "sequence_gen_s": gen_s, **small,
         "fused_vs_unfused_max_pose_gap": fused_gap,
         **{label: {**main[label], **times[label]} for label in odos},
+        "train": {**train, **train_times}, "learning_recipe": learning,
         "profile": profiles, "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
@@ -657,10 +952,12 @@ def main() -> int:
     finite = list(small.values())
     for t in times.values():
         finite += [t["forward_ms_b1"], t["process_sequence_pairs_per_s"]]
+    finite += [train_times[key] for key in ("train_step_ms", "train_forward_ms",
+                                            "train_backward_ms", "train_pairs_per_s")]
     finite += [k[key] for k in kernels for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
-    check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
-          "five kernels, each launched on the main path")
+    check(len(kernels) == 6 and all(k["launches"] > 0 for k in kernels),
+          "six kernels, each launched on its main path")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

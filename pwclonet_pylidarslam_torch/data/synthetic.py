@@ -1,9 +1,10 @@
 """Synthetic LiDAR sequences: analytic trajectories over a raycast world.
 
 The numpy subset of ``pwclonet_pylidarslam_tpu/data/synthetic.py`` that the
-port needs to make scans without the JAX package: the corridor world, the
-numpy raycaster, the sensor model, the trajectories and the sequence
-generator.
+port needs to make scans and training pairs without the JAX package: the
+corridor and along-path worlds, the numpy raycaster, the sensor model, the
+trajectories, the sequence generator, the deep-odometry input filter and the
+pair dataset.
 
 One difference: the reference casts rigid sweeps through its JAX
 ``FrameRaycaster``; here each rigid frame is cast with the numpy
@@ -19,6 +20,9 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from pwclonet_pylidarslam_torch.data.kitti import pose_to_params, random_augmentation
+
 
 @dataclasses.dataclass(frozen=True)
 class Rect:
@@ -77,6 +81,52 @@ def default_world(seed: int = 0) -> List[Rect]:
         x = rng.uniform(-30, 260)
         y = rng.uniform(-6, 6)
         rects.extend(_box([x, y, -1.2], [rng.uniform(1.5, 4), rng.uniform(1.2, 2), 1.4]))
+    return rects
+
+
+def world_along_path(poses: np.ndarray, seed: int = 0) -> List[Rect]:
+    """Urban-ish world flanking an arbitrary trajectory.
+
+    ``default_world`` builds a straight corridor along +x; trajectories that
+    turn eventually leave it and see nothing but the ground plane. This
+    generator places buildings along the *path*: every ~20 m of arc length,
+    one box on each side of the local heading, plus scattered street-level
+    obstacles.
+    """
+    rng = np.random.default_rng(seed)
+    rects = [
+        Rect(
+            np.array([-400.0, -400.0, -1.7]),
+            np.array([800.0, 0, 0]),
+            np.array([0, 800.0, 0]),
+        ),
+    ]
+    positions = poses[:, :3, 3]
+    seg = np.linalg.norm(np.diff(positions, axis=0), axis=-1)
+    arc = np.concatenate([[0.0], np.cumsum(seg)])
+    next_spawn = -20.0  # also cover the stretch behind the start
+    for t in range(len(poses)):
+        if arc[t] < next_spawn:
+            continue
+        next_spawn = arc[t] + 20.0 + rng.uniform(-4, 4)
+        heading = poses[t, :3, 0]  # vehicle x = forward
+        lateral = poses[t, :3, 1]  # vehicle y = left
+        for side in (-1.0, 1.0):
+            y_off = side * (9.0 + rng.uniform(0, 6))
+            center = (
+                positions[t]
+                + lateral * y_off
+                + heading * rng.uniform(-6, 6)
+            )
+            w = rng.uniform(6, 14)
+            d = rng.uniform(4, 8)
+            h = rng.uniform(4, 14)
+            rects.extend(_box([center[0], center[1], -1.7 + h / 2], [w, d, h]))
+        if rng.uniform() < 0.6:
+            obs = positions[t] + lateral * rng.uniform(-6, 6) + heading * rng.uniform(0, 12)
+            rects.extend(
+                _box([obs[0], obs[1], -1.2], [rng.uniform(1.5, 4), rng.uniform(1.2, 2), 1.4])
+            )
     return rects
 
 
@@ -277,8 +327,9 @@ class SyntheticSequenceConfig:
     # pose of frame t remains the scan-START pose.
     motion_distortion: bool = False
     # "corridor": straight street along +x (curving trajectories leave it
-    # after ~70 frames and see only ground). The reference's "along_path" and
-    # "kitti" worlds are not ported.
+    # after ~70 frames and see only ground). "along_path": buildings placed
+    # along the trajectory, for long sequences. The reference's "kitti" world
+    # is not ported.
     world: str = "corridor"
 
 
@@ -304,7 +355,8 @@ def generate_sequence_with_times(
     ``motion_distortion``; of the frame pose otherwise), zero-padded; ``times``
     are the fraction of the scan period in [0, 1) at which each point was
     taken (0 for padding); poses are ground-truth scan-start sensor poses.
-    Only the ``corridor`` world is ported; pass ``world`` for another one.
+    The ``corridor`` and ``along_path`` worlds are ported; pass ``world`` for
+    another one.
     """
     rng = np.random.default_rng(config.seed)
     dirs_sensor = lidar_directions(
@@ -317,9 +369,12 @@ def generate_sequence_with_times(
         rects = world
     elif config.world == "corridor":
         rects = default_world(config.seed)
+    elif config.world == "along_path":
+        rects = world_along_path(poses, config.seed)
     else:
         raise NotImplementedError(
-            f"world {config.world!r} is not ported; only 'corridor' is (see ROADMAP.md)"
+            f"world {config.world!r} is not ported; 'corridor' and 'along_path' are "
+            "(see ROADMAP.md, Queue A 9)"
         )
     soa = RectSoA(rects)
 
@@ -377,6 +432,89 @@ def generate_sequence_with_times(
         scans[t, : len(sel)] = pts[sel]
         times[t, : len(sel)] = tstamps[sel]
     return scans, times, poses.astype(np.float64)
+
+
+def filter_scan_sensor_frame(
+    pc: np.ndarray,
+    num_points: int,
+    rng: np.random.Generator,
+    ground_z: float = -1.4,
+    near: float = 30.0,
+) -> np.ndarray:
+    """Ground/range filter + resample to exactly ``num_points``: the
+    deep-odometry input filter in the synthetic sensor frame (z up, ground
+    plane at −1.7 m). Padding rows (zeros) never survive."""
+    valid = np.linalg.norm(pc, axis=-1) > 1e-3
+    is_ground = pc[:, 2] < ground_z
+    keep = valid & ~is_ground & (np.abs(pc[:, 0]) < near) & (np.abs(pc[:, 1]) < near)
+    idx = np.nonzero(keep)[0]
+    if len(idx) == 0:
+        idx = np.nonzero(valid)[0]
+    if len(idx) >= num_points:
+        sel = rng.choice(idx, num_points, replace=False)
+    else:
+        sel = np.concatenate(
+            [idx, rng.choice(idx, num_points - len(idx), replace=True)]
+        )
+    return pc[sel].astype(np.float32)
+
+
+@dataclasses.dataclass
+class SyntheticPairDataset:
+    """PWCLO-Net training pairs over synthetic-world sequences.
+
+    Same batch contract as ``data.kitti.KittiPairDataset`` (``{"xyz1":
+    current, "xyz2": previous, "gt_params": (t, q_wxyz) mapping xyz1 coords →
+    xyz2 coords}``) with the same filter and random-SE(3) augmentation,
+    sourced from raycast worlds instead of disk. The numpy random streams
+    are the reference's, so one seed gives both the same batches.
+
+    ``sequences``: list of ``(scans (T, N, 3), gt_poses (T, 4, 4))``.
+    """
+
+    sequences: List[Tuple[np.ndarray, np.ndarray]]
+    num_points: int = 8192
+    max_frame_gap: int = 1
+    augment: bool = True
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+        self._index = [
+            (s, i)
+            for s, (scans, _) in enumerate(self.sequences)
+            for i in range(1, len(scans))
+        ]
+
+    def __len__(self):
+        return len(self._index)
+
+    def __getitem__(self, index: int) -> dict:
+        s, i2 = self._index[index]
+        scans, poses = self.sequences[s]
+        gap = int(self._rng.integers(1, self.max_frame_gap + 1))
+        i1 = max(i2 - gap, 0)
+        p_prev = filter_scan_sensor_frame(scans[i1], self.num_points, self._rng)
+        p_cur = filter_scan_sensor_frame(scans[i2], self.num_points, self._rng)
+
+        # rel maps current-frame coords into previous-frame coords
+        t_rel = np.linalg.inv(poses[i1]) @ poses[i2]
+        if self.augment:
+            t_aug = random_augmentation(self._rng)
+            hom = np.concatenate([p_cur, np.ones((self.num_points, 1))], -1)
+            p_cur = (t_aug @ hom.T).T[:, :3].astype(np.float32)
+            t_gt = t_rel @ np.linalg.inv(t_aug)
+        else:
+            t_gt = t_rel
+        return {"xyz1": p_cur, "xyz2": p_prev, "gt_params": pose_to_params(t_gt)}
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: Optional[int] = None):
+        order = np.arange(len(self))
+        if shuffle:
+            (np.random.default_rng(seed) if seed is not None else self._rng).shuffle(order)
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            items = [self[int(i)] for i in order[start : start + batch_size]]
+            yield {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 def generate_sequence(

@@ -1,6 +1,6 @@
-"""PWCLO-Net in PyTorch (eval mode) and its Flax weight converter."""
+"""PWCLO-Net in PyTorch and its Flax weight and train-state converter."""
 
-from pwclonet_pylidarslam_torch.models.convert import load_flax_variables
+from pwclonet_pylidarslam_torch.models.convert import load_flax_train_state, load_flax_variables
 from pwclonet_pylidarslam_torch.models.pwclonet import (
     PWCLONet,
     PWCLONetConfig,
@@ -11,6 +11,7 @@ from pwclonet_pylidarslam_torch.models.pwclonet import (
 __all__ = [
     "PWCLONet",
     "PWCLONetConfig",
+    "load_flax_train_state",
     "load_flax_variables",
     "params_to_pose_matrix",
     "scaled_model_config",

@@ -1,4 +1,4 @@
-"""Load a Flax variable tree into the port's modules.
+"""Load a Flax variable tree, or a whole reference train state, into the port.
 
 ``variables`` is ``{"params": ..., "batch_stats": ...}`` as the reference's
 ``model.init``/trainer produce it, given as nested dicts of numpy arrays
@@ -9,11 +9,18 @@ The port's submodules carry the Flax auto-names, so a leaf at Flax path
 ``SetConv_0.PointMLP_0.kernel_0``; batch statistics (``mean_i``/``var_i``)
 are buffers. Flax ``Dense`` kernels are ``(Cin, Cout)`` and become the
 transposed ``nn.Linear`` weight; ``PointMLP`` kernels keep ``(Cin, Cout)``.
+
+A reference train state crosses as the nested dict (or the ``.npz`` of its
+flattened paths, written by ``tools/export_flax_checkpoint.py``)
+``{"params", "batch_stats", "loss_params": {"s_param"}, "opt_state":
+{"count", "mu": {"net", "loss"}, "nu": {"net", "loss"}}, "step"}``:
+:func:`load_flax_train_state` puts Adam's ``mu``/``nu``/``count`` into the
+``exp_avg``/``exp_avg_sq``/``count`` of the matching parameters.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +78,61 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     if unset:
         raise KeyError(f"torch entries left unset by the Flax tree: {sorted(unset)}")
     return model
+
+
+def unflatten_variables(flat: Mapping[str, np.ndarray]) -> Dict:
+    """The inverse of :func:`flatten_variables`."""
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def load_flax_npz(path) -> Dict:
+    """The nested tree of an ``.npz`` whose keys are flattened paths."""
+    with np.load(path, allow_pickle=False) as data:
+        return unflatten_variables({key: data[key] for key in data.files})
+
+
+def _trainable_key(path: str) -> Tuple[str, bool]:
+    """Path under an optimizer moment (``net/...`` or ``loss/...``) →
+    (key of ``TrainState.trainable()``, transpose?)."""
+    group, rest = path.split("/", 1)
+    if group == "loss":
+        return f"loss.{rest.replace('/', '.')}", False
+    if group != "net":
+        raise KeyError(f"unexpected group {group!r} in optimizer moment path {path!r}")
+    key, transpose = _torch_key(f"params/{rest}")
+    return f"net.{key}", transpose
+
+
+@torch.no_grad()
+def load_flax_train_state(state, tree: Mapping):
+    """Copy a whole reference train state (see the module docstring) into
+    the port's ``TrainState`` ``state``, in place, and return it: network
+    parameters and running statistics, loss parameters, Adam's moments and
+    update count, and the step. Raises if a leaf has no counterpart, if
+    anything of the port's state is left unset, or if a shape differs."""
+    load_flax_variables(state.model, {"params": tree["params"],
+                                      "batch_stats": tree["batch_stats"]})
+    given = flatten_variables(tree["loss_params"])
+    if set(given) != set(state.loss_params):
+        raise KeyError(f"loss parameters differ: {sorted(set(given) ^ set(state.loss_params))}")
+    for name, dst in state.loss_params.items():
+        if tuple(given[name].shape) != tuple(dst.shape):
+            raise ValueError(f"shape mismatch for loss parameter {name!r}")
+        dst.copy_(torch.tensor(given[name], dtype=dst.dtype))
+    moments = {}
+    for ours, theirs in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        moments[ours] = {}
+        for path, value in flatten_variables(tree["opt_state"][theirs]).items():
+            key, transpose = _trainable_key(path)
+            moments[ours][key] = torch.tensor(value.T if transpose else value, dtype=torch.float32)
+    # the optimizer raises on a missing or extra name and on a shape that differs
+    state.optimizer.load_state_dict({"count": int(tree["opt_state"]["count"]), **moments})
+    state.step = int(tree["step"])
+    return state

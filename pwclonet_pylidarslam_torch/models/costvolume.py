@@ -1,4 +1,4 @@
-"""Attentive cost volume ("double attentive embedding"), eval mode.
+"""Attentive cost volume ("double attentive embedding").
 
 PyTorch counterpart of
 ``pwclonet_pylidarslam_tpu/models/costvolume.py``:
@@ -11,9 +11,10 @@ PyTorch counterpart of
    F1 features, grouped embeddings] → attention → weighted sum of the grouped
    first embeddings.
 
-With ``fused_eval`` each aggregate runs as one kernel on the BN-folded
-weights (``ops/costvolume.py``): encoding, both MLP stacks, softmax and
-weighted sum on chip. The parameters are the same either way.
+With ``fused_eval`` each aggregate runs in eval mode as one kernel on the
+BN-folded weights (``ops/costvolume.py``): encoding, both MLP stacks, softmax
+and weighted sum on chip. The fused kernel has no backward: ``train=True``
+takes the unfused graph. The parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from torch import nn
 
 from pwclonet_pylidarslam_torch import ops
-from pwclonet_pylidarslam_torch.models.layers import PointMLP, check_eval, spatial_encoding
+from pwclonet_pylidarslam_torch.models.layers import PointMLP, spatial_encoding
 
 
 class CostVolume(nn.Module):
@@ -48,37 +49,39 @@ class CostVolume(nn.Module):
         self.PointMLP_3 = PointMLP(10, (d,), **kw)
         self.PointMLP_4 = PointMLP(d + feat1_channels + d, mlp2, **kw)
 
-    def forward(self, xyz1, feat1, xyz2, feat2, train: bool = False) -> torch.Tensor:
-        check_eval(train)
+    def forward(self, xyz1, feat1, xyz2, feat2, train: bool = False,
+                bn_momentum=0.1) -> torch.Tensor:
+        fused = self.fused_eval and not train
+        kw = dict(train=train, bn_momentum=bn_momentum)
         m_emb, m_enc1, m_att1, m_enc2, m_att2 = (
             self.PointMLP_0, self.PointMLP_1, self.PointMLP_2, self.PointMLP_3, self.PointMLP_4,
         )
         # ---- first (cross-frame) attentive aggregate
         _, idx_q = ops.knn(xyz1, xyz2, self.nsample_q, approx=True)
         q_xyz, q_feat = ops.group_points_multi(idx_q, xyz2, feat2)
-        if self.fused_eval:
+        if fused:
             first = ops.attentive_aggregate(
                 xyz1, q_xyz, feat1, q_feat, m_enc1.folded(), m_emb.folded(), m_att1.folded(),
                 att_includes_center=False)
         else:
             enc = spatial_encoding(xyz1, q_xyz)  # (B, S, Kq, 10)
             p_feat = feat1[:, :, None, :].expand(*q_feat.shape[:3], feat1.shape[-1])
-            emb = m_emb(torch.cat([enc, p_feat, q_feat], dim=-1), train=train)
-            enc1 = m_enc1(enc, train=train)
-            wq = m_att1(torch.cat([enc1, emb], dim=-1), train=train)
+            emb = m_emb(torch.cat([enc, p_feat, q_feat], dim=-1), **kw)
+            enc1 = m_enc1(enc, **kw)
+            wq = m_att1(torch.cat([enc1, emb], dim=-1), **kw)
             wq = torch.softmax(wq, dim=-2)  # attention over the Kq neighbours
             first = torch.sum(wq * emb, dim=-2)  # (B, S, mlp1[-1])
 
         # ---- second (self) attentive aggregate
         _, idx_s = ops.knn(xyz1, xyz1, self.nsample, approx=True)
         s_xyz, s_emb = ops.group_points_multi(idx_s, xyz1, first)
-        if self.fused_eval:
+        if fused:
             return ops.attentive_aggregate(
                 xyz1, s_xyz, feat1, s_emb, m_enc2.folded(), None, m_att2.folded(),
                 att_includes_center=True)
         enc_s = spatial_encoding(xyz1, s_xyz)
-        enc2 = m_enc2(enc_s, train=train)
+        enc2 = m_enc2(enc_s, **kw)
         p_feat_s = feat1[:, :, None, :].expand(*s_emb.shape[:3], feat1.shape[-1])
-        wp = m_att2(torch.cat([enc2, p_feat_s, s_emb], dim=-1), train=train)
+        wp = m_att2(torch.cat([enc2, p_feat_s, s_emb], dim=-1), **kw)
         wp = torch.softmax(wp, dim=-2)
         return torch.sum(wp * s_emb, dim=-2)  # (B, S, mlp2[-1])

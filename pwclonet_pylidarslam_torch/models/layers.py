@@ -1,4 +1,4 @@
-"""Shared neural building blocks, channel-last, eval mode.
+"""Shared neural building blocks, channel-last.
 
 PyTorch counterpart of ``pwclonet_pylidarslam_tpu/models/layers.py``. A 1×1
 conv over ``(B, N, K, C)`` is a matmul on the trailing axis. Parameters keep
@@ -7,41 +7,42 @@ them one to one (``models/convert.py``): ``PointMLP`` owns ``kernel_i``
 ``(Cin, Cout)``, ``scale_i`` and ``bias_i`` as parameters and the running
 BatchNorm statistics ``mean_i``/``var_i`` as buffers.
 
-Only eval mode is ported: training (batch statistics, momentum updates) is
-the training slice of ROADMAP.md. In eval mode ``PointMLP`` can fold each
-BatchNorm into its matmul (``folded()``) and run the whole MLP + max-pool
-block as one kernel (``forward(..., fused=True)``, ``ops/mlp.py``).
+In eval mode ``PointMLP`` can fold each BatchNorm into its matmul
+(``folded()``) and run the whole MLP + max-pool block as one kernel
+(``forward(..., fused=True)``, ``ops/mlp.py``). In train mode it normalises
+with the batch statistics and leaves the new running statistics *pending*:
+:func:`commit_batch_stats` writes them into the buffers (or keeps the old
+ones where a step is skipped), :func:`discard_batch_stats` drops them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from pwclonet_pylidarslam_torch import ops
 
-TRAINING_NOT_PORTED = (
-    "train=True is not ported: the torch package runs eval mode only; "
-    "training is the training slice of ROADMAP.md"
-)
-
-
-def check_eval(train: bool) -> None:
-    if train:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
-
 
 class PointMLP(nn.Module):
-    """Stack of (matmul → BatchNorm with running statistics → ReLU) over the
-    trailing channel axis; ``maxpool=True`` appends the max over axis -2.
+    """Stack of (matmul → BatchNorm → ReLU) over the trailing channel axis;
+    ``maxpool=True`` appends the max over axis -2.
+
+    BatchNorm uses the running statistics in eval mode. With ``train=True``
+    it uses the mean and the biased variance of the batch over all leading
+    axes, taken in float32, and computes
+    ``running = (1 - bn_momentum) * running + bn_momentum * batch`` (torch
+    convention, the same biased variance) without writing it: the new values
+    wait in ``pending`` for :func:`commit_batch_stats`. A second train-mode
+    call before the commit (the siamese pyramid) updates the pending values.
 
     ``in_features`` is explicit (Flax infers it at init). ``dtype=
     torch.bfloat16`` runs the unfused matmuls in bf16 (inputs and kernel cast,
     BatchNorm in float32, activations cast back; the result is float32).
     With ``fused=True`` the MLP + max-pool block of a 4-d input runs as one
-    float32 kernel on the BN-folded weights, whatever ``dtype`` is.
+    float32 kernel on the BN-folded weights, whatever ``dtype`` is; the fused
+    kernel has no backward, so ``train=True`` takes the unfused graph.
     """
 
     def __init__(self, in_features: int, features: Sequence[int], eps: float = 1e-5,
@@ -52,6 +53,7 @@ class PointMLP(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self._folded = None  # (state key, (weights, biases))
+        self.pending: Dict[str, torch.Tensor] = {}  # buffer name -> new running statistic
         cin = in_features
         for i, f in enumerate(self.features):
             kernel = torch.empty(cin, f)
@@ -84,16 +86,20 @@ class PointMLP(nn.Module):
             self._folded = (key, ops.fold_stack(layers, self.eps))
         return self._folded[1]
 
-    def forward(self, x: torch.Tensor, train: bool = False, maxpool: bool = False,
-                fused: bool = False) -> torch.Tensor:
-        check_eval(train)
-        if fused and maxpool and x.dim() == 4:
+    def forward(self, x: torch.Tensor, train: bool = False, bn_momentum=0.1,
+                maxpool: bool = False, fused: bool = False) -> torch.Tensor:
+        if fused and maxpool and not train and x.dim() == 4:
             return ops.mlp_maxpool(x.float(), *self.folded())
-        for kernel, scale, bias, mean, var in self._layers():
+        for i, (kernel, scale, bias, mean, var) in enumerate(self._layers()):
             if self.dtype is not None:
                 h = torch.matmul(x.to(self.dtype), kernel.to(self.dtype)).float()
             else:
                 h = torch.matmul(x, kernel)
+            if train:
+                var, mean = torch.var_mean(h.reshape(-1, h.shape[-1]), dim=0, unbiased=False)
+                for name, batch in ((f"mean_{i}", mean), (f"var_{i}", var)):
+                    running = self.pending.get(name, getattr(self, name))
+                    self.pending[name] = (1.0 - bn_momentum) * running + bn_momentum * batch.detach()
             h = (h - mean) * torch.rsqrt(var + self.eps) * scale + bias
             if self.dtype is not None:
                 h = h.to(self.dtype)
@@ -102,6 +108,41 @@ class PointMLP(nn.Module):
         if maxpool:
             x = torch.amax(x, dim=-2)
         return x
+
+
+def _pending_stats(module: nn.Module):
+    for m in module.modules():
+        if isinstance(m, PointMLP) and m.pending:
+            yield m
+
+
+@torch.no_grad()
+def commit_batch_stats(module: nn.Module, keep: Optional[torch.Tensor] = None) -> None:
+    """Write the running statistics that train-mode forwards left pending
+    into the buffers of every ``PointMLP`` under ``module``, in place (the
+    folded weights are then refolded at their next use). ``keep`` is an
+    optional 0-dim bool tensor on the buffers' device: where it is False the
+    old statistics stay, without the host having to read it."""
+    buffers, news = [], []
+    for m in _pending_stats(module):
+        for name, new in m.pending.items():
+            buffers.append(getattr(m, name))
+            news.append(new.to(buffers[-1].dtype))
+        m.pending.clear()
+    if not buffers:
+        return
+    if keep is not None:
+        # one masked select over all statistics at once, not one per buffer
+        flat = torch.where(keep, torch.cat([t.reshape(-1) for t in news]),
+                           torch.cat([t.reshape(-1) for t in buffers]))
+        news = [t.view_as(b) for t, b in zip(flat.split([b.numel() for b in buffers]), buffers)]
+    torch._foreach_copy_(buffers, news)
+
+
+def discard_batch_stats(module: nn.Module) -> None:
+    """Drop the pending running statistics under ``module``."""
+    for m in _pending_stats(module):
+        m.pending.clear()
 
 
 class LinearHead(nn.Module):

@@ -1,11 +1,12 @@
 """PointNet++-style set conv / set upconv modules (PWCLO-Net variants).
 
 PyTorch counterpart of ``SetConv`` and ``SetUpConv`` in
-``pwclonet_pylidarslam_tpu/models/pointnet2.py``, eval mode. With
-``fused_eval`` the grouped MLP + max-pool of either module runs as one
-kernel (``ops/mlp.py``); ``dtype`` is the compute dtype of the unfused
-matmuls. ``SetConvMSG``, ``FeaturePropagation`` and ``LFPModuleMSG`` are not
-ported yet (the point-set extras of ROADMAP.md).
+``pwclonet_pylidarslam_tpu/models/pointnet2.py``. With ``fused_eval`` the
+grouped MLP + max-pool of either module runs as one kernel in eval mode
+(``ops/mlp.py``; ``train=True`` takes the unfused graph, whose groupings
+differentiate through the gather's scatter-add); ``dtype`` is the compute
+dtype of the unfused matmuls. ``SetConvMSG``, ``FeaturePropagation`` and
+``LFPModuleMSG`` are not ported yet (the point-set extras of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class SetConv(nn.Module):
         self.PointMLP_0 = PointMLP(3 + (3 if in_channels is None else in_channels), mlp,
                                    generator=generator, dtype=dtype)
 
-    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool = False):
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool = False,
+                bn_momentum=0.1):
         idx = ops.furthest_point_sample(xyz, self.npoint)
         new_xyz = ops.gather_points(xyz, idx)  # (B, npoint, 3)
         _, nn_idx = ops.knn(new_xyz, xyz, self.nsample, approx=True)
@@ -51,7 +53,8 @@ class SetConv(nn.Module):
             grouped_xyz = ops.group_points(xyz, nn_idx)
             xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
             x = torch.cat([xyz_diff, grouped_xyz], dim=-1)
-        return new_xyz, self.PointMLP_0(x, train=train, maxpool=True, fused=self.fused_eval)
+        return new_xyz, self.PointMLP_0(x, train=train, bn_momentum=bn_momentum, maxpool=True,
+                                        fused=self.fused_eval)
 
 
 class SetUpConv(nn.Module):
@@ -74,12 +77,14 @@ class SetUpConv(nn.Module):
         self.PointMLP_1 = PointMLP(mlp[-1] + (fine_channels or 0), post_mlp, generator=generator,
                                    dtype=dtype)
 
-    def forward(self, fine_xyz, coarse_xyz, fine_feat, coarse_feat, train: bool = False):
+    def forward(self, fine_xyz, coarse_xyz, fine_feat, coarse_feat, train: bool = False,
+                bn_momentum=0.1):
         _, nn_idx = ops.knn(fine_xyz, coarse_xyz, self.nsample, approx=True)
         grouped_feat, grouped_xyz = ops.group_points_multi(nn_idx, coarse_feat, coarse_xyz)
         xyz_diff = grouped_xyz - fine_xyz[:, :, None, :]
         x = torch.cat([grouped_feat, xyz_diff], dim=-1)
-        x = self.PointMLP_0(x, train=train, maxpool=True, fused=self.fused_eval)  # (B, Nf, mlp[-1])
+        x = self.PointMLP_0(x, train=train, bn_momentum=bn_momentum, maxpool=True,
+                            fused=self.fused_eval)  # (B, Nf, mlp[-1])
         if fine_feat is not None:
             x = torch.cat([x, fine_feat], dim=-1)
-        return self.PointMLP_1(x, train=train)
+        return self.PointMLP_1(x, train=train, bn_momentum=bn_momentum)

@@ -1,4 +1,4 @@
-"""PWCLO-Net: hierarchical deep LiDAR odometry, eval mode, channel-last.
+"""PWCLO-Net: hierarchical deep LiDAR odometry, channel-last.
 
 PyTorch counterpart of ``pwclonet_pylidarslam_tpu/models/pwclonet.py``:
 
@@ -16,8 +16,11 @@ Submodules carry the Flax auto-names (``SetConv_0``, ``PoseWarpRefinement_2``,
 …) so that ``models/convert.py`` maps a Flax variable tree onto them by
 path. ``PWCLONetConfig.fused_eval`` runs every set-conv MLP + max-pool block
 and every attentive aggregate as one kernel each (``ops/mlp.py``,
-``ops/costvolume.py``); ``compute_dtype="bfloat16"`` runs the unfused MLP
-matmuls in bf16. Training is a later slice of ROADMAP.md.
+``ops/costvolume.py``) in eval mode; ``compute_dtype="bfloat16"`` runs the
+unfused MLP matmuls in bf16. ``forward(..., train=True)`` takes the unfused
+graph whatever ``fused_eval`` says, normalises with batch statistics (the new
+running statistics wait for ``models/layers.py::commit_batch_stats``) and
+draws the pose heads' dropout masks from the generator it is given.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from pwclonet_pylidarslam_torch.core import rotation as rot
 from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.device import resolve_device
 from pwclonet_pylidarslam_torch.models.costvolume import CostVolume
-from pwclonet_pylidarslam_torch.models.layers import LinearHead, PointMLP, check_eval
+from pwclonet_pylidarslam_torch.models.layers import LinearHead, PointMLP, discard_batch_stats
 from pwclonet_pylidarslam_torch.models.pointnet2 import SetConv, SetUpConv
 
 _EMB = 64  # flow-embedding / mask width of the reference channel plan
@@ -48,32 +51,44 @@ class FlowPredictor(nn.Module):
         super().__init__()
         self.PointMLP_0 = PointMLP(in_features, mlp, generator=generator, dtype=dtype)
 
-    def forward(self, *features, train: bool = False) -> torch.Tensor:
+    def forward(self, *features, train: bool = False, bn_momentum=0.1) -> torch.Tensor:
         x = torch.cat([f for f in features if f is not None], dim=-1)
-        return self.PointMLP_0(x, train=train)
+        return self.PointMLP_0(x, train=train, bn_momentum=bn_momentum)
 
 
 class PoseCalculator(nn.Module):
     """Masked aggregation → linear heads for (q, t).
 
     ``features/mask (B, N, C)``; the mask is softmaxed over N by the caller.
-    The reference's dropout(0.5) branches are the identity in eval mode.
+    The heads are linear, each behind its own dropout branch off the shared
+    ``hidden``-wide projection. In train mode the two masks are drawn one
+    after the other from ``generator`` (on the tensor's device; the default
+    generator when None), kept entries scaled by ``1 / (1 - dropout_rate)``;
+    in eval mode dropout is the identity.
     """
 
     def __init__(self, in_features: int, hidden: int = 256,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.LinearHead_0 = LinearHead(in_features, hidden, generator=generator)
         self.LinearHead_1 = LinearHead(hidden, 4, generator=generator)
         self.LinearHead_2 = LinearHead(hidden, 3, generator=generator)
 
-    def forward(self, features, mask, train: bool = False):
-        check_eval(train)
+    def _dropout(self, x: torch.Tensor, train: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not train or self.dropout_rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
+        return x * keep / (1.0 - self.dropout_rate)
+
+    def forward(self, features, mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         pooled = torch.sum(features * mask, dim=1)  # (B, C)
         big = self.LinearHead_0(pooled)
-        q = self.LinearHead_1(big)
+        q = self.LinearHead_1(self._dropout(big, train, generator))
         q = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + 1e-10) + 1e-10)
-        t = self.LinearHead_2(big)
+        t = self.LinearHead_2(self._dropout(big, train, generator))
         return q, t
 
 
@@ -111,18 +126,20 @@ class PoseWarpRefinement(nn.Module):
         self.PoseCalculator_0 = PoseCalculator(_EMB, generator=g)
 
     def forward(self, xyz_f1, feat_f1, xyz_f2, feat_f2, xyz_prev, feat_prev, mask_prev,
-                q_coarse, t_coarse, train: bool = False):
-        up_feat = self.SetUpConv_0(xyz_f1, xyz_prev, feat_f1, feat_prev, train=train)
-        up_mask = self.SetUpConv_1(xyz_f1, xyz_prev, feat_f1, mask_prev, train=train)
+                q_coarse, t_coarse, train: bool = False, bn_momentum=0.1,
+                generator: Optional[torch.Generator] = None):
+        kw = dict(train=train, bn_momentum=bn_momentum)
+        up_feat = self.SetUpConv_0(xyz_f1, xyz_prev, feat_f1, feat_prev, **kw)
+        up_mask = self.SetUpConv_1(xyz_f1, xyz_prev, feat_f1, mask_prev, **kw)
         warped = quat_warp(q_coarse, t_coarse, xyz_f1)
-        residual_emb = self.CostVolume_0(warped, feat_f1, xyz_f2, feat_f2, train=train)
-        emb_feat = self.FlowPredictor_0(feat_f1, residual_emb, up_feat, train=train)
+        residual_emb = self.CostVolume_0(warped, feat_f1, xyz_f2, feat_f2, **kw)
+        emb_feat = self.FlowPredictor_0(feat_f1, residual_emb, up_feat, **kw)
         if self.last_level:
             emb_mask = up_mask
         else:
-            emb_mask = self.FlowPredictor_1(up_mask, emb_feat, feat_f1, train=train)
+            emb_mask = self.FlowPredictor_1(up_mask, emb_feat, feat_f1, **kw)
         w = torch.softmax(emb_mask, dim=1)  # over N
-        q_det, t_det = self.PoseCalculator_0(emb_feat, w, train=train)
+        q_det, t_det = self.PoseCalculator_0(emb_feat, w, train=train, generator=generator)
         q = rot.quat_multiply(q_det, q_coarse)
         t = quat_warp(q_det, t_det, t_coarse[:, None, :])[:, 0]
         return q, t, emb_feat, emb_mask
@@ -162,9 +179,10 @@ def scaled_model_config(num_points: int, **overrides) -> PWCLONetConfig:
 
 
 class PWCLONet(nn.Module):
-    """Full network. ``forward(xyz1 (B,N,3), xyz2 (B,N,3))`` →
-    ``(pose_params (B, 4, 7), aux)``, params ``[t, q_wxyz]`` per level,
-    fine→coarse (index 0 = final prediction).
+    """Full network. ``forward(xyz1 (B,N,3), xyz2 (B,N,3), train=False,
+    bn_momentum=0.1, generator=None)`` → ``(pose_params (B, 4, 7), aux)``,
+    params ``[t, q_wxyz]`` per level, fine→coarse (index 0 = final
+    prediction). ``generator`` feeds the dropout masks of a train-mode call.
 
     Weights are a seeded init (xavier-uniform kernels, unit scale, zero bias
     and mean, unit var) unless loaded with ``models/convert.py``.
@@ -200,34 +218,37 @@ class PWCLONet(nn.Module):
         self.to(device)
         self.eval()
 
-    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, train: bool = False):
-        check_eval(train)
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, train: bool = False,
+                bn_momentum=0.1, generator: Optional[torch.Generator] = None):
+        if train:
+            discard_batch_stats(self)  # of an earlier forward that was never committed
+        kw = dict(train=train, bn_momentum=bn_momentum)
         sa = [getattr(self, f"SetConv_{i}") for i in range(4)]
         # siamese pyramid: the same four modules serve both frames
         f1 = [(xyz1, None)]
         f2 = [(xyz2, None)]
         for level in range(4):
-            f1.append(sa[level](*f1[-1]))
-            f2.append(sa[level](*f2[-1]))
+            f1.append(sa[level](*f1[-1], **kw))
+            f2.append(sa[level](*f2[-1], **kw))
         (x1_1, p1_1), (x1_2, p1_2), (x1_3, p1_3), (x1_4, p1_4) = f1[1:]
         (x2_1, p2_1), (x2_2, p2_2), (x2_3, p2_3), _ = f2[1:]
 
         # attentive cost volume at level 3 + flow feature encoding → level 4
-        flow_emb = self.CostVolume_0(x1_3, p1_3, x2_3, p2_3)
-        x1_4, emb4 = self.SetConv_4(x1_3, flow_emb)
+        flow_emb = self.CostVolume_0(x1_3, p1_3, x2_3, p2_3, **kw)
+        x1_4, emb4 = self.SetConv_4(x1_3, flow_emb, **kw)
 
         # level-4 embedding mask + coarse pose
-        mask4 = self.FlowPredictor_0(p1_4, emb4)
+        mask4 = self.FlowPredictor_0(p1_4, emb4, **kw)
         w4 = torch.softmax(mask4, dim=1)
-        q4, t4 = self.PoseCalculator_0(emb4, w4)
+        q4, t4 = self.PoseCalculator_0(emb4, w4, train=train, generator=generator)
 
         # cascaded warp-refinement: level 3 → 2 → 1
         q3, t3, emb3, mask3 = self.PoseWarpRefinement_0(
-            x1_3, p1_3, x2_3, p2_3, x1_4, emb4, mask4, q4, t4)
+            x1_3, p1_3, x2_3, p2_3, x1_4, emb4, mask4, q4, t4, generator=generator, **kw)
         q2, t2, emb2, mask2 = self.PoseWarpRefinement_1(
-            x1_2, p1_2, x2_2, p2_2, x1_3, emb3, mask3, q3, t3)
+            x1_2, p1_2, x2_2, p2_2, x1_3, emb3, mask3, q3, t3, generator=generator, **kw)
         q1, t1, _, mask1 = self.PoseWarpRefinement_2(
-            x1_1, p1_1, x2_1, p2_1, x1_2, emb2, mask2, q2, t2)
+            x1_1, p1_1, x2_1, p2_1, x1_2, emb2, mask2, q2, t2, generator=generator, **kw)
 
         def pack(q, t):
             qn = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + 1e-10) + 1e-10)

@@ -1,10 +1,16 @@
-"""Point-set ops (FPS, kNN, gather) and the fused eval-mode blocks (MLP +
-max-pool, attentive aggregate). Each launches its CUDA kernel on CUDA
-tensors and runs its plain PyTorch version on CPU tensors."""
+"""Point-set ops (FPS, kNN, gather with its scatter-add backward) and the
+fused eval-mode blocks (MLP + max-pool, attentive aggregate). Each launches
+its CUDA kernel on CUDA tensors and runs its plain PyTorch version on CPU
+tensors."""
 
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate
 from pwclonet_pylidarslam_torch.ops.fps import furthest_point_sample
-from pwclonet_pylidarslam_torch.ops.gather import gather_points, group_points, group_points_multi
+from pwclonet_pylidarslam_torch.ops.gather import (
+    gather_points,
+    group_points,
+    group_points_multi,
+    scatter_add_rows,
+)
 from pwclonet_pylidarslam_torch.ops.knn import knn
 from pwclonet_pylidarslam_torch.ops.mlp import fold_bn, fold_stack, mlp_maxpool
 
@@ -18,4 +24,5 @@ __all__ = [
     "group_points_multi",
     "knn",
     "mlp_maxpool",
+    "scatter_add_rows",
 ]

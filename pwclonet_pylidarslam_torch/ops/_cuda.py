@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 _EXACT = ("--fmad=false",)
 # flags of one source beside NVCC_FLAGS; a source not named here is held to a
 # tolerance and may contract its multiply-adds
-SOURCE_FLAGS = {"fps.cu": _EXACT, "knn.cu": _EXACT, "gather.cu": _EXACT}
+SOURCE_FLAGS = {"fps.cu": _EXACT, "knn.cu": _EXACT, "gather.cu": _EXACT,
+                "scatter_add.cu": _EXACT}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (all return a cudaError_t as int)
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "pwclo_fps": (_P, _P, _I, _I, _I, _P, _P),
     "pwclo_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # updates, idx, b, n, m, c, scratch, out, stream
+    "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # x, params, centres, k, n_layers, c0..c3, out, stream
     "pwclo_mlp_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att params,
@@ -62,7 +65,8 @@ _SIGNATURES = {
 UNSUPPORTED_SHAPE = -1
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"fps": 0, "knn": 0, "gather": 0, "mlp_maxpool": 0, "attentive_aggregate": 0}
+LAUNCHES = {"fps": 0, "knn": 0, "gather": 0, "scatter_add": 0, "mlp_maxpool": 0,
+            "attentive_aggregate": 0}
 
 _lib = None
 

@@ -80,10 +80,12 @@ def _furthest_point_sample_cuda(
     return out
 
 
+@torch.no_grad()
 def furthest_point_sample(
     points: torch.Tensor, npoint: int, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Iterative FPS over ``points (B, N, 3)`` → indices ``(B, npoint)`` int32.
+    """Iterative FPS over ``points (B, N, 3)`` → indices ``(B, npoint)`` int32,
+    computed under ``torch.no_grad()``.
 
     CPU tensors take the plain version; CUDA tensors take the kernel, which
     raises on a shape or dtype it does not take.

@@ -1,9 +1,13 @@
-"""Gather and group by index, channel-last ``(B, N, C)``.
+"""Gather and group by index, channel-last ``(B, N, C)``, and the gather's
+backward, a row scatter-add.
 
 Counterpart of ``pwclonet_pylidarslam_tpu/ops/gather.py``. On a CUDA tensor
-:func:`gather_points` launches the kernel of ``csrc/gather.cu``; on a CPU
-tensor it runs :func:`gather_points_plain`. Both are bit-exact copies of the
-indexed rows. Indices are int32 and assumed in range, as in the reference.
+:func:`gather_points` launches the kernel of ``csrc/gather.cu``, and its
+gradient the deterministic scatter-add of ``csrc/scatter_add.cu``
+(:func:`scatter_add_rows`); on a CPU tensor it runs
+:func:`gather_points_plain` under PyTorch's own autograd. The gather is a
+bit-exact copy of the indexed rows. Indices are int32, assumed in range as
+in the reference, and get no gradient.
 """
 
 from __future__ import annotations
@@ -13,22 +17,36 @@ import torch
 from pwclonet_pylidarslam_torch.ops import _cuda
 
 
-
 def gather_points_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``src (B, N, C)`` gathered by ``idx (B, M)`` → ``(B, M, C)``."""
     index = idx.long()[..., None].expand(-1, -1, src.shape[-1])
     return torch.gather(src, 1, index)
 
 
-def _gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    _cuda.check_cuda_tensor("src", src, (torch.float32,), 3)
+def scatter_add_rows_plain(updates: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[b, j, :] = Σ_{m: idx[b, m] = j} updates[b, m, :]``:
+    ``updates (B, M, C)``, ``idx (B, M)`` → ``(B, n, C)``."""
+    b, m, c = updates.shape
+    rows = idx.long() + n * torch.arange(b, device=idx.device)[:, None]
+    out = updates.new_zeros((b * n, c))
+    out.index_add_(0, rows.reshape(-1), updates.reshape(b * m, c))
+    return out.reshape(b, n, c)
+
+
+def _check_rows_and_idx(name: str, rows: torch.Tensor, idx: torch.Tensor) -> None:
+    _cuda.check_cuda_tensor(name, rows, (torch.float32,), 3)
     _cuda.check_cuda_tensor("idx", idx, (torch.int32,), 2)
+    if idx.shape[0] != rows.shape[0] or idx.device != rows.device:
+        raise ValueError(
+            f"idx must be (B, M) with B={rows.shape[0]} on {rows.device}, "
+            f"got {tuple(idx.shape)} on {idx.device}"
+        )
+
+
+def _gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _check_rows_and_idx("src", src, idx)
     b, n, c = src.shape
     m = idx.shape[1]
-    if idx.shape[0] != b or idx.device != src.device:
-        raise ValueError(
-            f"idx must be (B, M) with B={b} on {src.device}, got {tuple(idx.shape)} on {idx.device}"
-        )
     out = torch.empty((b, m, c), dtype=src.dtype, device=src.device)
     if out.numel():
         _cuda.launch(
@@ -38,14 +56,65 @@ def _gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _scatter_add_rows_cuda(updates: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    _check_rows_and_idx("updates", updates, idx)
+    b, m, c = updates.shape
+    if idx.shape[1] != m:
+        raise ValueError(f"idx must be (B, M) = {(b, m)}, got {tuple(idx.shape)}")
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    out = torch.empty((b, n, c), dtype=updates.dtype, device=updates.device)
+    if out.numel():
+        # counts, segment starts, members and ordered members of the inverted index
+        scratch = torch.empty(b * n + b * (n + 1) + 2 * b * m, dtype=torch.int32,
+                              device=updates.device)
+        _cuda.launch(
+            "scatter_add", "pwclo_scatter_add", updates.device,
+            updates.data_ptr(), idx.data_ptr(), b, n, m, c, scratch.data_ptr(), out.data_ptr(),
+            _cuda.stream_of(updates),
+        )
+    return out
+
+
+def scatter_add_rows(updates: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``updates (B, M, C)`` summed into ``(B, n, C)`` by ``idx (B, M)``:
+    ``out[b, j, :] = Σ_{m: idx[b, m] = j} updates[b, m, :]``, the rows of one
+    ``j`` added in ascending ``m``. CPU tensors take the plain version; CUDA
+    tensors take the kernel, which takes contiguous float32 updates and int32
+    indices and raises on anything else. Two calls on the same inputs agree
+    to the bit."""
+    if updates.device.type == "cpu":
+        return scatter_add_rows_plain(updates, idx, n)
+    return _scatter_add_rows_cuda(updates, idx, n)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The gather kernel with the scatter-add kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n = src.shape[1]
+        return _gather_points_cuda(src, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        # an incoming gradient is often a view (a slice of a concatenation):
+        # the kernel takes contiguous rows
+        return _scatter_add_rows_cuda(grad.contiguous(), idx, ctx.n), None
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``points (B, N, C)`` gathered by ``idx (B, M)`` → ``(B, M, C)``:
     ``out[b, m, :] = points[b, idx[b, m], :]``. CPU tensors take the plain
     version; CUDA tensors take the kernel, which raises on a dtype or shape
-    it does not take."""
+    it does not take, and whose gradient with respect to ``points`` is
+    :func:`scatter_add_rows` of the incoming gradient."""
     if points.device.type == "cpu":
         return gather_points_plain(points, idx)
-    return _gather_points_cuda(points.contiguous(), idx.contiguous())
+    return _GatherRows.apply(points.contiguous(), idx.contiguous())
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -56,7 +125,8 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def group_points_multi(idx: torch.Tensor, *tensors: torch.Tensor) -> tuple:
-    """Group several same-``N`` tensors by one index set with one gather.
+    """Group several same-``N`` tensors by one index set with one gather
+    (and so one scatter-add in the backward).
 
     The sources are concatenated (which promotes mixed dtypes to the widest)
     and each output slice is cast back to its source's dtype, so the result

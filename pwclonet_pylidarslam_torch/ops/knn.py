@@ -13,7 +13,9 @@ the CPU, and its TPU kernel's approximation is not carried over.
 
 On a CUDA tensor :func:`knn` launches the kernel of ``csrc/knn.cu``; on a
 CPU tensor it runs :func:`knn_plain`. Masks are not taken yet: no caller on
-the PWCLO-Net path passes one.
+the PWCLO-Net path passes one. The search runs under ``torch.no_grad()`` and
+its results never require grad: the network uses the indices only, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> Tuple[torch.Ten
     return dists, idx
 
 
+@torch.no_grad()
 def knn(
     query: torch.Tensor, ref: torch.Tensor, k: int, approx: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:

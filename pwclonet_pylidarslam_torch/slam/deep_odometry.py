@@ -9,6 +9,7 @@ device, and chain the relative poses on the host in float64.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping, Optional, Union
 
 import numpy as np
@@ -29,21 +30,28 @@ class DeepOdometryConfig:
 class PWCLONetOdometry:
     """PWCLO-Net frame-to-frame odometry (inference).
 
-    ``variables``: a Flax tree ``{"params": ..., "batch_stats": ...}`` of
-    numpy arrays from the reference's trainer, or None for the seeded init
-    of ``PWCLONet(seed=seed)``. The network predicts the pose of the
+    ``variables``: a checkpoint of the port's trainer (its path, or the
+    loaded dict, whose ``"model"`` entry is the network's state dict), a Flax
+    tree ``{"params": ..., "batch_stats": ...}`` of numpy arrays from the
+    reference's trainer (other entries of an exported train state are left
+    aside), or None for the seeded init of
+    ``PWCLONet(seed=seed)``. The network predicts the pose of the
     **current** frame in the previous frame's coordinates (finest level,
     index 0). Runs on ``device``, CUDA unless the caller asks for the CPU.
     """
 
-    def __init__(self, variables: Optional[Mapping] = None,
+    def __init__(self, variables: Union[None, Mapping, str, os.PathLike] = None,
                  config: Optional[DeepOdometryConfig] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
         self.config = config or DeepOdometryConfig()
         self.device = resolve_device(device)
         self.model = PWCLONet(self.config.model, seed=seed, device=self.device)
-        if variables is not None:
-            load_flax_variables(self.model, variables)
+        if isinstance(variables, (str, os.PathLike)):
+            variables = torch.load(variables, map_location=self.device, weights_only=True)
+        if variables is not None and "model" in variables:
+            self.model.load_state_dict(variables["model"])
+        elif variables is not None:
+            load_flax_variables(self.model, {k: variables[k] for k in ("params", "batch_stats")})
         self.state_pose: Optional[np.ndarray] = None
         self._prev_scan: Optional[np.ndarray] = None
         self.poses: list = []

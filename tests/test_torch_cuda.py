@@ -19,6 +19,10 @@ from pwclonet_pylidarslam_torch.ops.knn import knn, knn_plain
 from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain
 
 
+def _rand(rng, device, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -57,6 +61,52 @@ def test_gather_kernel_matches_plain(cuda_device, rng, c):
                                tgather.gather_points_plain(src, idx), rtol=0, atol=0)
 
 
+# full-width backward shapes at batch 8, then M no multiple of 128, a heavily
+# repeated index (three rows take every update), and rows that take none
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,c,targets", [
+    (8, 2048, 32768, 19, None), (8, 1024, 16384, 67, None), (8, 256, 1024, 131, None),
+    (2, 100, 333, 5, None), (2, 64, 5000, 7, 3), (1, 4096, 50, 33, None),
+])
+def test_scatter_add_kernel_matches_plain_and_itself(cuda_device, rng, b, n, m, c, targets):
+    upd = _rand(rng, cuda_device, b, m, c)
+    high = n if targets is None else targets
+    idx = torch.from_numpy(rng.integers(0, high, size=(b, m)).astype(np.int32)).to(cuda_device)
+    out = tgather.scatter_add_rows(upd, idx, n)
+    again = tgather.scatter_add_rows(upd, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # no float atomics: the order of the adds is fixed
+    ref = tgather.scatter_add_rows_plain(upd, idx, n)
+    # the library's scatter adds in another order: atol 1e-5 of the largest sum
+    scale = max(1.0, tgather.scatter_add_rows_plain(upd.abs(), idx, n).max().item())
+    torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
+    # against a sequential loop over m on the CPU, the order the kernel promises
+    loop = tgather.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n)
+    torch.testing.assert_close(out.cpu(), loop, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gather_gradient_is_the_scatter_add_kernel(cuda_device, rng):
+    src = _rand(rng, cuda_device, 2, 512, 35).requires_grad_()
+    other = _rand(rng, cuda_device, 2, 512, 3).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, 512, size=(2, 300, 8)).astype(np.int32)).to(cuda_device)
+    _cuda.reset_launch_counts()
+    a, b = tgather.group_points_multi(idx, src, other)  # one gather, slices of its output
+    loss = (a ** 2).sum() + (b[..., :2] * 3.0).sum()
+    loss.backward()
+    assert _cuda.launch_counts()["gather"] == 1 and _cuda.launch_counts()["scatter_add"] == 1
+    assert idx.grad is None
+    cpu_src = src.detach().cpu().requires_grad_()
+    cpu_other = other.detach().cpu().requires_grad_()
+    ca, cb = tgather.group_points_multi(idx.cpu(), cpu_src, cpu_other)  # the plain path's autograd
+    ((ca ** 2).sum() + (cb[..., :2] * 3.0).sum()).backward()
+    torch.testing.assert_close(src.grad.cpu(), cpu_src.grad, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(other.grad.cpu(), cpu_other.grad, atol=1e-4, rtol=1e-5)
+    # a source that does not require grad launches no scatter-add
+    tgather.gather_points(src.detach(), idx[:, :, 0].contiguous())
+    assert _cuda.launch_counts()["scatter_add"] == 1
+
+
 def _stack(rng, cin, widths, device):
     """Random folded ``(weights, biases)`` of a stack on ``device``."""
     ws, bs = [], []
@@ -66,10 +116,6 @@ def _stack(rng, cin, widths, device):
         bs.append(torch.from_numpy((rng.normal(size=cout) * 0.3).astype(np.float32)).to(device))
         cin = cout
     return tuple(ws), tuple(bs)
-
-
-def _rand(rng, device, *shape, scale=1.0):
-    return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
 
 
 @pytest.fixture
@@ -146,10 +192,17 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     agg = (pts[:, :8], pts[:, :32].reshape(1, 8, 4, 3), x[:, :, 0], x,
            _stack(rng, 10, (6,), cuda_device), None, _stack(rng, 6 + 6 + 6, (6,), cuda_device), True)
     ops.attentive_aggregate(*agg)
-    once = {"fps": 1, "knn": 1, "gather": 1, "mlp_maxpool": 1, "attentive_aggregate": 1}
+    rows = torch.zeros(1, 64, dtype=torch.int32, device=cuda_device)
+    tgather.scatter_add_rows(pts, rows, 8)
+    once = {"fps": 1, "knn": 1, "gather": 1, "scatter_add": 1, "mlp_maxpool": 1,
+            "attentive_aggregate": 1}
     assert _cuda.launch_counts() == once
     with pytest.raises(TypeError):
         tgather.gather_points(pts.double(), idx)
+    with pytest.raises(TypeError):
+        tgather.scatter_add_rows(pts.double(), rows, 8)
+    with pytest.raises(ValueError):  # a view: the kernel takes contiguous rows
+        tgather.scatter_add_rows(pts.transpose(1, 2), rows[:, :3].contiguous(), 8)
     with pytest.raises(ValueError):
         knn(pts, pts, 33)  # above the kernel's sorted-list size
     with pytest.raises(TypeError):

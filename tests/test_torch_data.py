@@ -89,3 +89,126 @@ def test_motion_distorted_sequence_identical():
 def test_unported_world_raises():
     with pytest.raises(NotImplementedError, match="corridor"):
         tsyn.generate_sequence(tsyn.SyntheticSequenceConfig(n_frames=2, world="kitti"))
+
+
+def test_world_along_path_identical():
+    poses = jsyn.make_trajectory("curve", 60, 1.0, 1.5)
+    ours, ref = tsyn.world_along_path(poses, seed=3), jsyn.world_along_path(poses, seed=3)
+    assert len(ours) == len(ref) > 20
+    for a, b in zip(ours, ref):
+        for field in ("origin", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+
+
+def test_along_path_sequence_identical_with_motion_distortion():
+    cfg = dict(n_frames=3, num_beams=8, num_cols=96, num_points=256, seed=2, world="along_path",
+               motion_distortion=True)
+    s_ours, p_ours = tsyn.generate_sequence(tsyn.SyntheticSequenceConfig(**cfg))
+    s_ref, p_ref = jsyn.generate_sequence(jsyn.SyntheticSequenceConfig(**cfg))
+    np.testing.assert_array_equal(s_ours, s_ref)
+    np.testing.assert_array_equal(p_ours, p_ref)
+    assert (np.linalg.norm(s_ours, axis=-1) > 0).mean() > 0.5
+
+
+@pytest.fixture(scope="module")
+def pair_sequences():
+    """Two short along-path sequences from the port's generator."""
+    return [
+        tsyn.generate_sequence(tsyn.SyntheticSequenceConfig(
+            n_frames=5, trajectory="curve", world="along_path", num_beams=16, num_cols=128,
+            num_points=1024, seed=seed))
+        for seed in (1, 2)
+    ]
+
+
+def test_filter_scan_sensor_frame_identical(pair_sequences):
+    scan = pair_sequences[0][0][1]
+    for n in (128, 4096):  # fewer and more points than survive the filter
+        ours = tsyn.filter_scan_sensor_frame(scan, n, np.random.default_rng(4))
+        ref = jsyn.filter_scan_sensor_frame(scan, n, np.random.default_rng(4))
+        np.testing.assert_array_equal(ours, ref)
+        assert ours.shape == (n, 3) and ours.dtype == np.float32
+        assert (ours[:, 2] >= -1.4).all() and (np.linalg.norm(ours, axis=-1) > 1e-3).all()
+
+
+def test_random_augmentation_identical():
+    from pwclonet_pylidarslam_torch.data import kitti as tkitti
+    from pwclonet_pylidarslam_tpu.data import kitti as jkitti
+
+    for seed in range(3):
+        np.testing.assert_array_equal(tkitti.random_augmentation(np.random.default_rng(seed)),
+                                      jkitti.random_augmentation(np.random.default_rng(seed)))
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_synthetic_pair_dataset_matches_reference(pair_sequences, augment):
+    kw = dict(num_points=128, augment=augment, seed=3)
+    ours = tsyn.SyntheticPairDataset(pair_sequences, **kw)
+    ref = jsyn.SyntheticPairDataset(pair_sequences, **kw)
+    assert len(ours) == len(ref) == 8
+    for i in (0, 5):
+        a, b = ours[i], ref[i]
+        assert set(a) == set(b) == {"xyz1", "xyz2", "gt_params"}
+        np.testing.assert_array_equal(a["xyz1"], b["xyz1"])
+        np.testing.assert_array_equal(a["xyz2"], b["xyz2"])
+        np.testing.assert_allclose(a["gt_params"], b["gt_params"], atol=1e-6)
+        assert a["gt_params"].dtype == np.float32 and a["xyz1"].dtype == np.float32
+    for seed in (None, 7):  # the dataset's own stream, then a per-epoch seed
+        got = list(ours.batches(4, shuffle=True, seed=seed))
+        want = list(ref.batches(4, shuffle=True, seed=seed))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a["xyz1"], b["xyz1"])
+            np.testing.assert_array_equal(a["xyz2"], b["xyz2"])
+            np.testing.assert_allclose(a["gt_params"], b["gt_params"], atol=1e-6)
+            assert a["xyz1"].shape == (4, 128, 3) and a["gt_params"].shape == (4, 7)
+    # gt maps xyz1 (current) into xyz2 (previous): unit quaternion, w >= 0
+    q = got[0]["gt_params"][:, 3:]
+    np.testing.assert_allclose(np.linalg.norm(q, axis=-1), 1.0, atol=1e-6)
+    assert (q[:, 0] >= 0).all()
+
+
+def _write_kitti(root, n_scans=3, n_points=600, seed=0):
+    """A tiny KITTI odometry tree: sequence 04 with ``n_scans`` scans."""
+    rng = np.random.default_rng(seed)
+    vdir = root / "sequences" / "04" / "velodyne"
+    vdir.mkdir(parents=True)
+    for i in range(n_scans):
+        pts = rng.normal(size=(n_points, 4)).astype(np.float32) * np.float32([12, 12, 1.0, 0.1])
+        pts.tofile(vdir / f"{i:06d}.bin")
+    tr = "Tr: 0 -1 0 0.01 0 0 -1 -0.07 1 0 0 -0.27"
+    (root / "sequences" / "04" / "calib.txt").write_text(f"P0: 1 0 0 0 0 1 0 0 0 0 1 0\n{tr}\n")
+    (root / "poses").mkdir()
+    rows = []
+    for i in range(n_scans):
+        a = 0.02 * i
+        pose = np.array([[np.cos(a), 0, np.sin(a), 0.1 * i], [0, 1, 0, 0.0],
+                         [-np.sin(a), 0, np.cos(a), 1.0 * i]])
+        rows.append(" ".join(f"{v:.9e}" for v in pose.reshape(-1)))
+    (root / "poses" / "04.txt").write_text("\n".join(rows) + "\n")
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_kitti_pair_dataset_matches_reference(tmp_path, augment):
+    from pwclonet_pylidarslam_torch.data import kitti as tkitti
+    from pwclonet_pylidarslam_tpu.data import kitti as jkitti
+
+    _write_kitti(tmp_path)
+    kw = dict(num_points=256, augment=augment, seed=5)
+    ours = tkitti.KittiPairDataset(str(tmp_path), [4], **kw)
+    ref = jkitti.KittiPairDataset(str(tmp_path), [4], **kw)
+    assert len(ours) == len(ref) == 3
+    for i in range(3):
+        a, b = ours[i], ref[i]
+        np.testing.assert_array_equal(a["xyz1"], b["xyz1"])
+        np.testing.assert_array_equal(a["xyz2"], b["xyz2"])
+        np.testing.assert_allclose(a["gt_params"], b["gt_params"], atol=1e-6)
+    got, want = list(ours.batches(2, shuffle=True)), list(ref.batches(2, shuffle=True))
+    assert len(got) == len(want) == 1 and got[0]["xyz1"].shape == (2, 256, 3)
+    np.testing.assert_array_equal(got[0]["xyz1"], want[0]["xyz1"])
+    np.testing.assert_allclose(got[0]["gt_params"], want[0]["gt_params"], atol=1e-6)
+
+    seq, jseq = tkitti.KittiSequence(str(tmp_path), 4), jkitti.KittiSequence(str(tmp_path), 4)
+    assert len(seq) == len(jseq) == 3
+    np.testing.assert_array_equal(seq.scan(1), jseq.scan(1))
+    np.testing.assert_array_equal(seq.ground_truth(), jseq.ground_truth())

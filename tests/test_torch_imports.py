@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``pwclonet_pylidarslam_torch`` and
-not ``chip_smoke.py`` imports JAX or the JAX package, and its entry points
-run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``pwclonet_pylidarslam_torch``, and
+neither ``chip_smoke.py`` nor ``train_net_torch.py``, imports JAX or the JAX
+package, and its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 from pathlib import Path
@@ -12,8 +12,9 @@ from pwclonet_pylidarslam_torch.models import PWCLONetConfig
 from pwclonet_pylidarslam_torch.slam.deep_odometry import DeepOdometryConfig, PWCLONetOdometry
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pwclonet_pylidarslam_tpu")
-SOURCES = sorted((REPO / "pwclonet_pylidarslam_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pwclonet_pylidarslam_tpu")
+SOURCES = sorted((REPO / "pwclonet_pylidarslam_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "train_net_torch.py"]
 
 
 def _imported_modules(path: Path):

@@ -263,13 +263,19 @@ def test_seeded_init_is_deterministic():
 
 
 def test_eval_only_and_unported_options_raise():
-    net = PWCLONet(PWCLONetConfig(**SMALL), device="cpu")
-    x = torch.zeros(1, 256, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        net(x, x, train=True)
-    for cfg in (PWCLONetConfig(**SMALL, fused_eval=True),
+    """Training is ported: ``train=True`` runs in every configuration and
+    leaves the running statistics pending; an unknown compute dtype still
+    raises."""
+    x = torch.randn(2, 256, 3, generator=torch.Generator().manual_seed(0)) * 8
+    for cfg in (PWCLONetConfig(**SMALL), PWCLONetConfig(**SMALL, fused_eval=True),
                 PWCLONetConfig(**SMALL, compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            PWCLONet(cfg, device="cpu")(x, x, train=True)
+        net = PWCLONet(cfg, device="cpu")
+        before = net.SetConv_0.PointMLP_0.mean_0.clone()
+        params, _ = net(x, x + 0.01, train=True, bn_momentum=0.5,
+                        generator=torch.Generator().manual_seed(1))
+        assert params.shape == (2, 4, 7) and params.requires_grad
+        assert torch.isfinite(params).all()
+        assert torch.equal(net.SetConv_0.PointMLP_0.mean_0, before)
+        assert net.SetConv_0.PointMLP_0.pending
     with pytest.raises(ValueError, match="compute_dtype"):
         PWCLONet(PWCLONetConfig(**SMALL, compute_dtype="float16"), device="cpu")

@@ -134,8 +134,12 @@ def test_cpu_tensors_take_the_plain_path(rng):
     enc = ((torch.ones(10, 3),), (torch.zeros(3),))
     att = ((torch.ones(9, 3),), (torch.zeros(3),))
     ops.attentive_aggregate(pts[:, :8], x, pts[:, :8], x, enc, None, att, True)
+    tgather.scatter_add_rows(pts[:, :8], idx, 64)
+    src = pts.clone().requires_grad_()
+    tgather.gather_points(src, idx).sum().backward()  # the plain path's own autograd
     assert _cuda.launch_counts() == {
-        "fps": 0, "knn": 0, "gather": 0, "mlp_maxpool": 0, "attentive_aggregate": 0}
+        "fps": 0, "knn": 0, "gather": 0, "scatter_add": 0, "mlp_maxpool": 0,
+        "attentive_aggregate": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -147,6 +151,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         _knn_cuda(pts, pts, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tgather._gather_points_cuda(pts, torch.zeros(1, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tgather._scatter_add_rows_cuda(pts, torch.zeros(1, 8, dtype=torch.int32), 4)
     x = torch.zeros(1, 8, 4, 3)
     one = ((torch.ones(3, 3),), (torch.zeros(3),))
     with pytest.raises(ValueError, match="CUDA"):
