@@ -2,7 +2,7 @@
 """Run the PyTorch port of PWCLO-Net odometry and training on one NVIDIA GPU
 and check it.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--kernels]
 
 from the root of the repository, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which must pass:
@@ -10,9 +10,13 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
 1. build the hand-written kernels of ``pwclonet_pylidarslam_torch/csrc``
    with ``nvcc`` for ``sm_90a``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the full-width main path gives it (B=1): FPS indices identical,
-   kNN distances within 1e-5 and neighbour sets equal except where two
-   distances tie within 1e-5, gather bit-exact, the fused MLP + max-pool
+   shapes the full-width main path gives it (B=1, and B=2 where the siamese
+   pyramid stacks both frames): FPS indices identical (and the paired launch
+   at most 1.1 x the time of one frame's), kNN distances and indices
+   ``torch.equal`` at every shape of the path (k = 4, 6, 8, 16, 32), on an
+   integer grid and on duplicated points, gather bit-exact; FPS at every
+   cluster size and thread count and kNN at 2, 4 and 8 queries a block give
+   the same results and are timed; the fused MLP + max-pool
    within atol 3e-5 / rtol 1e-4 and the fused attentive aggregate within
    atol 5e-5 / rtol 1e-4 (both sum in another order than the library's
    matmul), on weights folded from perturbed BatchNorm statistics; the
@@ -40,7 +44,7 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
 5. train at full width through ``PWCLONetTrainer`` on the card (batch 8, 8192
    points, float32, the random-cloud batches of ``train_net_torch.py``): six
    steps of ``train_epoch`` with the counters zeroed before and read after
-   (FPS 9, kNN 23, gather 32 and scatter-add 20 launches a step, the fused
+   (FPS 5, kNN 19, gather 24 and scatter-add 18 launches a step, the fused
    kernels none), every loss and gradient norm finite, no step skipped; the
    same step from the same state and generator twice gives bit-identical
    gradients; the checkpoint loads into a fused ``PWCLONetOdometry``, which
@@ -55,14 +59,20 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM's
    published peaks). A kernel's ``ms`` is the device's time per call, taken
    with the calls queued behind a sleeping kernel; ``call_ms`` is the time
-   per call when Python issues them one after another.
+   per call when Python launches them one after another. FPS also gets
+   ``chain_bound_ms``: the time of its chain of ``npoint - 1`` dependent
+   steps when each does only its key reduction and its wait, measured with
+   the same kernel stripped of the distance update.
 
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
+``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
+thread count, the kNN kernel's at each number of queries a block), a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if CUDA is unavailable or any check
 fails. ``--profile`` profiles one full-width forward of each configuration
 and prints the tables of those and of the train step on stderr; device time
-by kernel, launches and idle share go into the metrics.
+by kernel, launches and idle share go into the metrics. ``--kernels`` stops
+after phase 2 and prints the cases and the variants (no last line).
 """
 
 from __future__ import annotations
@@ -96,7 +106,12 @@ from pwclonet_pylidarslam_torch.ops import _cuda  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import fps as tfps  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import gather as tgather  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain  # noqa: E402
-from pwclonet_pylidarslam_torch.ops.knn import knn, knn_plain, pairwise_sqdist  # noqa: E402
+from pwclonet_pylidarslam_torch.ops.knn import (  # noqa: E402
+    _knn_cuda,
+    knn,
+    knn_plain,
+    pairwise_sqdist,
+)
 from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain  # noqa: E402
 from pwclonet_pylidarslam_torch.models.layers import discard_batch_stats  # noqa: E402
 from pwclonet_pylidarslam_torch.models.pwclonet import PoseCalculator  # noqa: E402
@@ -112,24 +127,26 @@ import train_net_torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores, published
-# launches of each kernel per forward pair, read off models/pwclonet.py:
-# FPS: 4 pyramid SetConvs x 2 frames + the flow-embedding SetConv;
-# kNN: 8 + 1 SetConv, 2 per cost volume x 4, 2 SetUpConvs x 3 levels;
-# gather: 2 per SetConv x 9, 2 per cost volume x 4, 1 per SetUpConv x 6;
-# with fused_eval, mlp_maxpool: 1 per SetConv x 9 and per SetUpConv x 6;
-# attentive_aggregate: 2 per cost volume x 4.
+# launches of each kernel per forward pair, read off models/pwclonet.py (the
+# pyramid samples and groups both frames in one launch, stacked on the batch):
+# FPS: 4 pyramid levels + the flow-embedding SetConv;
+# kNN: 4 + 1 SetConv, 2 per cost volume x 4, 2 SetUpConvs x 3 levels;
+# gather: 2 per SetConv x 5, 2 per cost volume x 4, 1 per SetUpConv x 6;
+# with fused_eval, mlp_maxpool: 1 per pyramid level and frame (8), 1 for the
+# flow-embedding SetConv and 1 per SetUpConv x 6; attentive_aggregate: 2 per
+# cost volume x 4.
 LAUNCHES_PER_FORWARD = {
-    False: {"fps": 9, "knn": 23, "gather": 32, "scatter_add": 0, "mlp_maxpool": 0,
+    False: {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 0, "mlp_maxpool": 0,
             "attentive_aggregate": 0},
-    True: {"fps": 9, "knn": 23, "gather": 32, "scatter_add": 0, "mlp_maxpool": 15,
+    True: {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 0, "mlp_maxpool": 15,
            "attentive_aggregate": 8},
 }
-# a train step takes the unfused graph. Of its 32 gathers, 20 have a source
+# a train step takes the unfused graph. Of its 24 gathers, 18 have a source
 # that requires grad and an output that the loss reads: the groupings of the
-# pyramid SetConvs above level 1 (3 of frame 1, 2 of frame 2: nothing reads
-# the level-4 features of frame 2), the flow-embedding SetConv, 2 per cost
-# volume x 4 and 1 per SetUpConv x 6. Each runs one scatter-add in the backward.
-LAUNCHES_PER_TRAIN_STEP = {"fps": 9, "knn": 23, "gather": 32, "scatter_add": 20,
+# pyramid levels above the first (3, both frames in one), the flow-embedding
+# SetConv, 2 per cost volume x 4 and 1 per SetUpConv x 6. Each runs one
+# scatter-add in the backward.
+LAUNCHES_PER_TRAIN_STEP = {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 18,
                            "mlp_maxpool": 0, "attentive_aggregate": 0}
 KERNELS = {
     "fps": ("pwclonet_pylidarslam_torch/csrc/fps.cu",
@@ -234,44 +251,81 @@ def fps_case(points: torch.Tensor, npoint: int) -> dict:
     ref = tfps.furthest_point_sample_plain(points, npoint)
     err = (out.long() - ref.long()).abs().max().item()
     b, n, _ = points.shape
-    check(err == 0, f"fps {n}->{npoint}: kernel indices identical to plain")
+    check(err == 0, f"fps B={b} {n}->{npoint}: kernel indices identical to plain")
     # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
     nbytes, flops = b * n * 3 * 4 + b * npoint * 4, 10.0 * b * n * (npoint - 1)
     bnd, by = bound_ms(nbytes, flops)
+    # the chain of npoint - 1 dependent steps, each at least one sample-wide
+    # key reduction and one wait: the same kernel without its distance update
+    skeleton = device_ms(lambda: tfps._furthest_point_sample_cuda(points, npoint, None,
+                                                                  skeleton=True), 10)["ms"]
     return {
         "shape": f"B={b} N={n} npoint={npoint}", "max_abs_err": float(err),
-        "bound_ms": bnd, "bound_by": by,
+        "bound_ms": bnd, "bound_by": by, "chain_bound_ms": skeleton * (npoint - 1) / npoint,
         **kernel_times(lambda: tfps.furthest_point_sample(points, npoint),
                        lambda: tfps.furthest_point_sample_plain(points, npoint), None, 10, 2),
     }
 
 
-def knn_case(query: torch.Tensor, ref: torch.Tensor, k: int) -> dict:
+def fps_variants(points: torch.Tensor, npoint: int) -> list:
+    """The FPS kernel at every cluster size (blocks a sample) and thread count
+    it takes for this sample, each held against the kernel's own choice and
+    timed; the first entry is the kernel's own choice."""
+    b, n, _ = points.shape
+    ref = tfps.furthest_point_sample(points, npoint)
+    rows = [{"cluster": 0, "threads": 0, **device_ms(
+        lambda: tfps.furthest_point_sample(points, npoint), 10)}]
+    for threads in (1024, 512, 256, 128, 64):
+        if not n / 16 <= threads <= max(32, n):
+            continue  # the kernel keeps at most 16 points a thread, and no idle warps here
+        for cluster in (1, 2, 4, 8):
+            if threads // cluster < 32:
+                continue
+            run = functools.partial(tfps._furthest_point_sample_cuda, points, npoint, None,
+                                    cluster=cluster, threads=threads)
+            check(torch.equal(run(), ref),
+                  f"fps {n}->{npoint} cluster={cluster} threads={threads}: same picks")
+            skeleton = device_ms(functools.partial(run, skeleton=True), 10)["ms"]
+            rows.append({"cluster": cluster, "threads": threads, "skeleton_ms": skeleton,
+                         **device_ms(run, 10)})
+    return [{"shape": f"B={b} N={n} npoint={npoint}", **r} for r in rows]
+
+
+def knn_case(query: torch.Tensor, ref: torch.Tensor, k: int, what: str = "") -> dict:
     d, i = knn(query, ref, k)
     pd, pi = knn_plain(query, ref, k)
-    err = (d - pd).abs().max().item()
-    check(err <= 1e-5, f"knn {query.shape[1]}x{ref.shape[1]} k={k}: distances within 1e-5 "
-          f"(max {err:.3g})")
-    full = pairwise_sqdist(query, ref)
-    differ = i != pi
-    # where the sets differ, the kernel's neighbour must tie the plain one's
-    kernel_d = torch.gather(full, 2, i.long())
-    tie_gap = (kernel_d - pd).abs()[differ]
-    worst = tie_gap.max().item() if tie_gap.numel() else 0.0
-    check(worst <= 1e-5, f"knn {query.shape[1]}x{ref.shape[1]} k={k}: neighbour sets equal "
-          f"except ties within 1e-5 ({int(differ.sum())} positions differ)")
     b, s, _ = query.shape
     n = ref.shape[1]
+    name = f"B={b} S={s} N={n} k={k}" + (f" ({what})" if what else "")
+    err = (d - pd).abs().max().item()
+    check(torch.equal(d, pd), f"knn {name}: distances equal to plain to the bit (max {err:.3g})")
+    check(torch.equal(i, pi), f"knn {name}: indices equal to plain "
+          f"({int((i != pi).sum())} positions differ)")
     # per pair: 3 mul + 2 add (cross), 1 add, 1 mul, 1 sub, 1 max, 1 compare
     nbytes, flops = (b * s * 3 + b * n * 3) * 4 + b * s * k * 8, 10.0 * b * s * n
     bnd, by = bound_ms(nbytes, flops)
+    full = pairwise_sqdist(query, ref)
     return {
-        "shape": f"B={b} S={s} N={n} k={k}", "max_abs_err": err,
+        "shape": name, "max_abs_err": err,
         "bound_ms": bnd, "bound_by": by,
         # library: torch.topk on the precomputed distance matrix (the matrix not timed)
         **kernel_times(lambda: knn(query, ref, k), lambda: knn_plain(query, ref, k),
                        lambda: torch.topk(full, k, dim=-1, largest=False), 20, 3),
     }
+
+
+def knn_variants(query: torch.Tensor, ref: torch.Tensor, k: int) -> list:
+    """The kNN kernel at 2, 4 and 8 queries a block, each held against the
+    kernel's own choice and timed; the first entry is the kernel's own choice."""
+    d, i = knn(query, ref, k)
+    name = f"B={query.shape[0]} S={query.shape[1]} N={ref.shape[1]} k={k}"
+    rows = [{"warps": 0, **device_ms(lambda: knn(query, ref, k), 20)}]
+    for warps in (2, 4, 8):
+        run = functools.partial(_knn_cuda, query, ref, k, warps=warps)
+        vd, vi = run()
+        check(torch.equal(vd, d) and torch.equal(vi, i), f"knn {name} warps={warps}: same result")
+        rows.append({"warps": warps, **device_ms(run, 20)})
+    return [{"shape": name, **r} for r in rows]
 
 
 def gather_case(src: torch.Tensor, idx: torch.Tensor) -> dict:
@@ -445,18 +499,51 @@ def fused_kernel_cases() -> dict:
 
 def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) -> dict:
     """``scan``/``scan2``: two prepared full-width frames ``(1, 8192, 3)``;
-    ``frames``: eight of them, for the scatter-add's batch-8 shapes."""
+    ``frames``: eight of them, for the scatter-add's batch-8 shapes. FPS and
+    kNN at every shape the main path gives them, and with both frames stacked
+    on the batch axis as the siamese pyramid launches them."""
     cases = {"fps": [], "knn": [], "gather": []}
-    cases["fps"].append(fps_case(scan, 2048))
-    l1 = tgather.gather_points(scan, tfps.furthest_point_sample(scan, 2048))  # (1, 2048, 3)
-    l1b = tgather.gather_points(scan2, tfps.furthest_point_sample(scan2, 2048))
-    l2 = tgather.gather_points(l1, tfps.furthest_point_sample(l1, 1024))
-    cases["fps"].append(fps_case(l1, 1024))
-    cases["fps"].append(fps_case(l2, 256))
-    cases["knn"].append(knn_case(l1, scan, 32))  # level-1 SetConv grouping
-    cases["knn"].append(knn_case(l1, l1b, 6))  # level-1 re-embedding cost volume
-    cases["knn"].append(knn_case(l2, l1, 32))  # level-2 SetConv grouping
-    _, nn_idx = knn(l1, scan, 32)
+    both = torch.cat([scan, scan2])  # (2, 8192, 3): the pyramid's paired launch
+    levels = [both]
+    for npoint in (2048, 1024, 256, 64):
+        cases["fps"].append(fps_case(levels[-1][:1], npoint))
+        levels.append(tgather.gather_points(
+            levels[-1], tfps.furthest_point_sample(levels[-1], npoint)))
+    for one, (level, npoint) in zip(cases["fps"], ((levels[0], 2048), (levels[1], 1024))):
+        paired = fps_case(level, npoint)  # both frames in one launch
+        cases["fps"].append(paired)
+        check(paired["ms"] <= 1.1 * one["ms"], f"fps {paired['shape']}: the paired launch takes "
+              f"{paired['ms']:.3f} ms, at most 1.1 x the {one['ms']:.3f} ms of one frame")
+    (l0, l1, l2, l3, l4), (_, l1b, l2b, l3b, _) = ([lv[f:f + 1] for lv in levels] for f in (0, 1))
+    cases["knn"] += [
+        knn_case(l1, l0, 32, "level-1 SetConv"),
+        knn_case(l1, l1b, 6, "level-1 cost volume"),
+        knn_case(l2, l1, 32, "level-2 SetConv"),
+        knn_case(levels[1], levels[0], 32, "level-1 SetConv, both frames"),
+        knn_case(levels[2], levels[1], 32, "level-2 SetConv, both frames"),
+        knn_case(l3, l2, 16, "level-3 SetConv"),
+        knn_case(l4, l3, 16, "level-4 SetConv"),
+        knn_case(l3, l3b, 32, "level-3 cost volume"),
+        knn_case(l3, l3, 4, "level-3 cost volume, self"),
+        knn_case(l3, l4, 8, "level-3 SetUpConv"),
+        knn_case(l2, l3, 8, "level-2 SetUpConv"),
+        knn_case(l1, l2, 8, "level-1 SetUpConv"),
+        knn_case(l3, l3b, 6, "level-3 re-embedding"),
+        knn_case(l2, l2b, 6, "level-2 cost volume"),
+        knn_case(l2, l2, 4, "level-2 cost volume, self"),
+        knn_case(l1, l1, 4, "level-1 cost volume, self"),
+    ]
+    # many exact ties: an integer grid, and every reference point twice
+    grid = torch.stack(torch.meshgrid(*[torch.arange(13.0, device=scan.device)] * 3,
+                                      indexing="ij"), -1).reshape(1, -1, 3)
+    cases["knn"].append(knn_case(grid, grid, 32, "integer grid"))
+    cases["knn"].append(knn_case(l2, torch.cat([l1, l1], dim=1), 16, "duplicated points"))
+    variants = {
+        "fps": (fps_variants(l0, 2048) + fps_variants(l1, 1024) + fps_variants(l2, 256)
+                + fps_variants(l3, 64)),
+        "knn": knn_variants(l1, l0, 32) + knn_variants(l2, l1, 32) + knn_variants(l1, l1b, 6),
+    }
+    _, nn_idx = knn(l1, l0, 32)
     flat = nn_idx.reshape(1, -1).contiguous()  # M = 2048 * 32 = 65,536 rows
     cases["gather"].append(gather_case(scan, flat))
     gen = torch.Generator(device=scan.device).manual_seed(0)
@@ -464,7 +551,7 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) 
     cases["gather"].append(gather_case(wide, flat))
     cases["scatter_add"] = scatter_cases(frames)
     cases.update(fused_kernel_cases())
-    return cases
+    return cases, variants
 
 
 # ---------------------------------------------------------------------------
@@ -851,6 +938,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one full-width forward of each configuration")
+    parser.add_argument("--kernels", action="store_true",
+                        help="stop after phase 2: build, each kernel against its plain version, "
+                             "and the FPS and kNN launch variants; prints no ok line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -886,7 +976,12 @@ def main() -> int:
     scan0, scan1 = frames[0:1], frames[1:2]
 
     log("phase 2: kernels against their plain versions")
-    cases = kernel_phase(scan0, scan1, frames)
+    cases, variants = kernel_phase(scan0, scan1, frames)
+    if args.kernels:
+        print(card_line())
+        print(json.dumps({"cases": cases}))
+        print(json.dumps({"variants": variants}))
+        return 0
 
     log("phase 3: small config, card against CPU, fused against unfused, one train step")
     small = {**small_config_phase(scans), **small_train_phase(scans)}
@@ -930,6 +1025,7 @@ def main() -> int:
             "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            **({"chain_bound_ms": head["chain_bound_ms"]} if "chain_bound_ms" in head else {}),
             "shape": head["shape"], "cases": cases[name],
         })
     width = "8192 points, reference channel plan, float32, seeded random weights"
@@ -948,6 +1044,7 @@ def main() -> int:
     }
     print(card_line())
     print(json.dumps({"metrics": metrics}))
+    print(json.dumps({"variants": variants}))
     print(json.dumps({"kernels": kernels}))
     finite = list(small.values())
     for t in times.values():

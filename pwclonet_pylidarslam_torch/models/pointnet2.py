@@ -39,22 +39,35 @@ class SetConv(nn.Module):
         self.PointMLP_0 = PointMLP(3 + (3 if in_channels is None else in_channels), mlp,
                                    generator=generator, dtype=dtype)
 
-    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool = False,
-                bn_momentum=0.1):
+    def sample_group(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
+        """FPS, centre gather, kNN and grouping, each in one launch for the
+        whole batch → ``(new_xyz (B,npoint,3), grouped (B,npoint,nsample,3+C))``,
+        the input of the MLP. Every sample is sampled and grouped on its own,
+        so a caller may stack independent clouds (the two frames of a pair)
+        on the batch axis and run :meth:`mlp` on each part."""
         idx = ops.furthest_point_sample(xyz, self.npoint)
         new_xyz = ops.gather_points(xyz, idx)  # (B, npoint, 3)
         _, nn_idx = ops.knn(new_xyz, xyz, self.nsample, approx=True)
         if features is not None:
             grouped_xyz, grouped_feat = ops.group_points_multi(nn_idx, xyz, features)
             xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
-            x = torch.cat([xyz_diff, grouped_feat], dim=-1)
-        else:
-            # first level: concat the raw grouped xyz
-            grouped_xyz = ops.group_points(xyz, nn_idx)
-            xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
-            x = torch.cat([xyz_diff, grouped_xyz], dim=-1)
-        return new_xyz, self.PointMLP_0(x, train=train, bn_momentum=bn_momentum, maxpool=True,
-                                        fused=self.fused_eval)
+            return new_xyz, torch.cat([xyz_diff, grouped_feat], dim=-1)
+        # first level: concat the raw grouped xyz
+        grouped_xyz = ops.group_points(xyz, nn_idx)
+        xyz_diff = grouped_xyz - new_xyz[:, :, None, :]
+        return new_xyz, torch.cat([xyz_diff, grouped_xyz], dim=-1)
+
+    def mlp(self, grouped: torch.Tensor, train: bool = False, bn_momentum=0.1) -> torch.Tensor:
+        """MLP + max-pool over ``grouped (B,npoint,nsample,3+C)`` →
+        ``(B, npoint, mlp[-1])``; in train mode one call is one batch of
+        BatchNorm statistics."""
+        return self.PointMLP_0(grouped, train=train, bn_momentum=bn_momentum, maxpool=True,
+                               fused=self.fused_eval)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor], train: bool = False,
+                bn_momentum=0.1):
+        new_xyz, grouped = self.sample_group(xyz, features)
+        return new_xyz, self.mlp(grouped, train=train, bn_momentum=bn_momentum)
 
 
 class SetUpConv(nn.Module):

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``pwclonet_pylidarslam_tpu/models/pwclonet.py``:
 
 - siamese 4-level set-conv pyramid (the four ``SetConv`` modules are shared
-  by both frames), npoint 2048/1024/256/64, nsample 32/32/16/16, output
+  by both frames, which are sampled and grouped together, stacked on the
+  batch axis), npoint 2048/1024/256/64, nsample 32/32/16/16, output
   channels 16/32/64/128;
 - attentive cost volume at level 3 + flow-feature-encoding set conv → level
   4 flow embedding (64 ch);
@@ -218,20 +219,40 @@ class PWCLONet(nn.Module):
         self.to(device)
         self.eval()
 
+    def pyramid(self, xyz1: torch.Tensor, xyz2: torch.Tensor, train: bool = False,
+                bn_momentum=0.1):
+        """The siamese set-conv pyramid: per frame the four levels' ``(xyz,
+        features)``, fine to coarse. The same four modules serve both frames.
+
+        The frames are stacked on the batch axis, so that each level samples
+        and groups both in one launch of each point op (every sample on its
+        own, so nothing changes in the result). The MLP runs once per frame,
+        frame 1 first: in train mode each call is one frame's batch of
+        statistics, and the second chains its pending running statistics onto
+        the first's.
+        """
+        kw = dict(train=train, bn_momentum=bn_momentum)
+        b = xyz1.shape[0]
+        xyz, feat = torch.cat([xyz1, xyz2]), None
+        f1, f2 = [], []
+        for level in range(4):
+            sa = getattr(self, f"SetConv_{level}")
+            xyz, grouped = sa.sample_group(xyz, feat)
+            p1 = sa.mlp(grouped[:b], **kw)
+            p2 = sa.mlp(grouped[b:], **kw)
+            feat = torch.cat([p1, p2])
+            f1.append((xyz[:b], p1))
+            f2.append((xyz[b:], p2))
+        return f1, f2
+
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, train: bool = False,
                 bn_momentum=0.1, generator: Optional[torch.Generator] = None):
         if train:
             discard_batch_stats(self)  # of an earlier forward that was never committed
         kw = dict(train=train, bn_momentum=bn_momentum)
-        sa = [getattr(self, f"SetConv_{i}") for i in range(4)]
-        # siamese pyramid: the same four modules serve both frames
-        f1 = [(xyz1, None)]
-        f2 = [(xyz2, None)]
-        for level in range(4):
-            f1.append(sa[level](*f1[-1], **kw))
-            f2.append(sa[level](*f2[-1], **kw))
-        (x1_1, p1_1), (x1_2, p1_2), (x1_3, p1_3), (x1_4, p1_4) = f1[1:]
-        (x2_1, p2_1), (x2_2, p2_2), (x2_3, p2_3), _ = f2[1:]
+        f1, f2 = self.pyramid(xyz1, xyz2, **kw)
+        (x1_1, p1_1), (x1_2, p1_2), (x1_3, p1_3), (x1_4, p1_4) = f1
+        (x2_1, p2_1), (x2_2, p2_2), (x2_3, p2_3), _ = f2
 
         # attentive cost volume at level 3 + flow feature encoding → level 4
         flow_emb = self.CostVolume_0(x1_3, p1_3, x2_3, p2_3, **kw)

@@ -47,8 +47,10 @@ SOURCE_FLAGS = {"fps.cu": _EXACT, "knn.cu": _EXACT, "gather.cu": _EXACT,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
-    "pwclo_fps": (_P, _P, _I, _I, _I, _P, _P),
-    "pwclo_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # points, mask, b, n, npoint, out, cluster, threads, skeleton, stream
+    "pwclo_fps": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    # query, ref, b, s, n, k, out_d, out_i, warps, stream
+    "pwclo_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
     # updates, idx, b, n, m, c, scratch, out, stream
     "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _P, _P, _P),

@@ -25,7 +25,7 @@ from pwclonet_pylidarslam_torch.ops import _cuda
 
 _PAD_NORM_SQ = 1e-3
 _BIG = 1e10
-MAX_POINTS_CUDA = 16 * 1024  # the kernel keeps N/1024 <= 16 points per thread
+MAX_POINTS_CUDA = 16 * 1024  # <= 16 points a thread, and N * 12 bytes of shared memory a block
 
 
 def _sqnorm(x, y, z):
@@ -56,8 +56,14 @@ def furthest_point_sample_plain(
 
 
 def _furthest_point_sample_cuda(
-    points: torch.Tensor, npoint: int, mask: Optional[torch.Tensor]
+    points: torch.Tensor, npoint: int, mask: Optional[torch.Tensor],
+    cluster: int = 0, threads: int = 0, skeleton: bool = False,
 ) -> torch.Tensor:
+    """The kernel. ``cluster`` (blocks a sample) and ``threads`` (a sample) are
+    0 for the kernel's own choice, which is what :func:`furthest_point_sample`
+    passes; other values are there to be timed against it. ``skeleton`` runs
+    the step's key reduction and wait without the distance update (every pick
+    is the first one): the floor of the chain of ``npoint`` dependent steps."""
     _cuda.check_cuda_tensor("points", points, (torch.float32,), 3)
     b, n, c = points.shape
     if c != 3:
@@ -75,7 +81,8 @@ def _furthest_point_sample_cuda(
     out = torch.empty((b, npoint), dtype=torch.int32, device=points.device)
     _cuda.launch(
         "fps", "pwclo_fps", points.device,
-        points.data_ptr(), mask_ptr, b, n, npoint, out.data_ptr(), _cuda.stream_of(points),
+        points.data_ptr(), mask_ptr, b, n, npoint, out.data_ptr(), cluster, threads,
+        int(skeleton), _cuda.stream_of(points),
     )
     return out
 

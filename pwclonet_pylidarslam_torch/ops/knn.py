@@ -26,7 +26,7 @@ import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
 
-MAX_K_CUDA = 32  # the kernel's largest sorted list
+MAX_K_CUDA = 32  # the kernel's sorted list: one key a lane of a warp
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,7 +54,12 @@ def knn_plain(query: torch.Tensor, ref: torch.Tensor, k: int) -> Tuple[torch.Ten
     return vals[..., :k].contiguous(), idx[..., :k].to(torch.int32)
 
 
-def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _knn_cuda(
+    query: torch.Tensor, ref: torch.Tensor, k: int, warps: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel. ``warps`` is the number of queries a block serves; 0, which
+    is what :func:`knn` passes, leaves the choice to the kernel, and the other
+    values are there to be timed against it."""
     _cuda.check_cuda_tensor("query", query, (torch.float32,), 3)
     _cuda.check_cuda_tensor("ref", ref, (torch.float32,), 3)
     b, s, c = query.shape
@@ -72,7 +77,7 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> Tuple[torch.Ten
         _cuda.launch(
             "knn", "pwclo_knn", query.device,
             query.data_ptr(), ref.data_ptr(), b, s, n, k,
-            dists.data_ptr(), idx.data_ptr(), _cuda.stream_of(query),
+            dists.data_ptr(), idx.data_ptr(), warps, _cuda.stream_of(query),
         )
     return dists, idx
 

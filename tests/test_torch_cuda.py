@@ -15,7 +15,7 @@ from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops import fps as tfps
 from pwclonet_pylidarslam_torch.ops import gather as tgather
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain
-from pwclonet_pylidarslam_torch.ops.knn import knn, knn_plain
+from pwclonet_pylidarslam_torch.ops.knn import _knn_cuda, knn, knn_plain
 from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain
 
 
@@ -30,26 +30,125 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# main-path sizes (one block a sample up to 4096 points, a cluster above),
+# sizes that fill no warp or thread evenly, the largest the kernel takes
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,npoint", [(8192, 2048), (2048, 1024), (1024, 256), (256, 64), (300, 50)])
-def test_fps_kernel_matches_plain(cuda_device, rng, n, npoint):
-    pts = torch.from_numpy((rng.normal(size=(2, n, 3)) * 10).astype(np.float32)).to(cuda_device)
+@pytest.mark.parametrize("b,n,npoint", [
+    (2, 8192, 2048), (2, 2048, 1024), (2, 1024, 256), (2, 256, 64), (2, 300, 50), (1, 1, 3),
+    (3, 4097, 300), (2, 5000, 700), (1, 16384, 512), (2, 12345, 200), (18, 8192, 256),
+    (18, 2048, 256),
+])
+def test_fps_kernel_matches_plain(cuda_device, rng, b, n, npoint):
+    pts = torch.from_numpy((rng.normal(size=(b, n, 3)) * 10).astype(np.float32)).to(cuda_device)
     pts[0, :5] = 0.0
     out = tfps.furthest_point_sample(pts, npoint)
     ref = tfps.furthest_point_sample_plain(pts, npoint)
-    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert out.dtype == torch.int32 and torch.equal(out, ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,n,k", [(2048, 8192, 32), (2048, 2048, 6), (256, 64, 8), (64, 10, 4)])
-def test_knn_kernel_matches_plain(cuda_device, rng, s, n, k):
-    q = torch.from_numpy((rng.normal(size=(2, s, 3)) * 10).astype(np.float32)).to(cuda_device)
-    r = torch.from_numpy((rng.normal(size=(2, n, 3)) * 10).astype(np.float32)).to(cuda_device)
+@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("case", ["mask", "fewer valid than npoint", "none valid", "duplicated"])
+def test_fps_kernel_masks_and_ties(cuda_device, rng, n, case):
+    pts = torch.from_numpy((rng.normal(size=(2, n, 3)) * 10).astype(np.float32)).to(cuda_device)
+    mask = None
+    if case == "mask":
+        mask = torch.from_numpy((rng.random(size=(2, n)) > 0.4).astype(np.float32)).to(cuda_device)
+        mask[:, :9] = 0.0
+    elif case == "fewer valid than npoint":
+        mask = torch.zeros(2, n, device=cuda_device)
+        mask[0, 100:140] = 1.0
+        mask[1, n - 7:] = 1.0
+    elif case == "none valid":
+        pts[0] = 0.0  # the padding guard rejects every point of sample 0
+        mask = None
+    else:
+        pts = torch.cat([pts[:, : n // 2], pts[:, : n // 2]], dim=1)  # every point twice: ties
+    out = tfps.furthest_point_sample(pts, 128, mask)
+    ref = tfps.furthest_point_sample_plain(pts, 128, mask)
+    assert torch.equal(out, ref)
+    if case == "none valid":
+        assert int(out[0].max()) == 0
+
+
+@pytest.mark.cuda
+def test_fps_kernel_variants_and_skeleton(cuda_device, rng):
+    """Every cluster size gives the kernel's own picks; the skeleton (no
+    distance update) repeats the first pick; a cluster size or thread count
+    the kernel does not take raises, as does a cloud above its size."""
+    pts = torch.from_numpy((rng.normal(size=(2, 8192, 3)) * 10).astype(np.float32)).to(cuda_device)
+    ref = tfps.furthest_point_sample_plain(pts, 200)
+    for cluster in (1, 2, 4, 8):
+        out = tfps._furthest_point_sample_cuda(pts, 200, None, cluster=cluster, threads=1024)
+        assert torch.equal(out, ref), cluster
+    skel = tfps._furthest_point_sample_cuda(pts, 50, None, skeleton=True)
+    assert torch.equal(skel, ref[:, :1].expand(-1, 50))
+    with pytest.raises(RuntimeError):
+        tfps._furthest_point_sample_cuda(pts, 8, None, cluster=3)
+    with pytest.raises(RuntimeError):
+        tfps._furthest_point_sample_cuda(pts, 8, None, threads=256)  # 32 points a thread
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(torch.zeros(1, 16385, 3, device=cuda_device), 8)
+    torch.cuda.synchronize()
+
+
+def _knn_equal(q, r, k):
     d, i = knn(q, r, k)
     pd, pi = knn_plain(q, r, k)
-    # both round every product and sum on its own: bit-exact
-    torch.testing.assert_close(d, pd, rtol=0, atol=0)
-    torch.testing.assert_close(i, pi, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    # both round every product and sum on its own: equal to the bit
+    assert torch.equal(i, pi), f"{int((i != pi).sum())} indices differ"
+    assert torch.equal(d, pd)
+
+
+# main-path shapes, S and N that are no multiple of the tile (2048), of the
+# votes' stride (128) or of the queries per block (4, 8), k = N, a large batch
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n,k", [
+    (2, 2048, 8192, 32), (2, 2048, 2048, 6), (2, 256, 64, 8), (2, 64, 10, 4), (1, 1, 1, 1),
+    (2, 1027, 2049, 32), (3, 13, 4100, 16), (2, 333, 127, 1), (2, 77, 129, 8), (1, 5, 32, 32),
+    (2, 50, 31, 31), (2, 9, 6, 6), (18, 1024, 2048, 32), (18, 100, 300, 4),
+])
+def test_knn_kernel_matches_plain(cuda_device, rng, b, s, n, k):
+    q = torch.from_numpy((rng.normal(size=(b, s, 3)) * 10).astype(np.float32)).to(cuda_device)
+    r = torch.from_numpy((rng.normal(size=(b, n, 3)) * 10).astype(np.float32)).to(cuda_device)
+    _knn_equal(q, r, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 6, 8, 16, 32])
+@pytest.mark.parametrize("case", ["integer grid", "duplicated points", "far from the origin"])
+def test_knn_kernel_orders_ties_as_plain(cuda_device, rng, case, k):
+    if case == "integer grid":
+        g = torch.stack(torch.meshgrid(*[torch.arange(11.0)] * 3, indexing="ij"), -1)
+        r = g.reshape(1, -1, 3).repeat(2, 1, 1).to(cuda_device)
+        q = r[:, ::5].contiguous()
+    elif case == "duplicated points":
+        base = _rand(rng, cuda_device, 2, 700, 3, scale=5.0)
+        r = torch.cat([base, base, base[:, :100]], dim=1)
+        q = base[:, :300].contiguous()
+    else:
+        # at 50-80 m the formula cancels to a grid of 2^-10: exact ties, clamped zeros
+        centre = torch.tensor([60.0, 75.0, 52.0], device=cuda_device)
+        r = centre + _rand(rng, cuda_device, 2, 3000, 3, scale=0.5)
+        q = centre + _rand(rng, cuda_device, 2, 500, 3, scale=0.5)
+    _knn_equal(q, r, k)
+    for warps in (1, 3, 8):  # any number of queries a block gives the same
+        d, i = _knn_cuda(q, r, k, warps=warps)
+        assert torch.equal(i, knn_plain(q, r, k)[1]), warps
+
+
+@pytest.mark.cuda
+def test_knn_kernel_refuses_what_it_cannot_take(cuda_device):
+    pts = torch.rand(1, 64, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        _knn_cuda(pts, pts, 33)
+    with pytest.raises(ValueError):
+        _knn_cuda(pts, pts[:, :5].contiguous(), 8)  # k above N: knn() pads, the kernel refuses
+    with pytest.raises(RuntimeError):
+        _knn_cuda(pts, pts, 4, warps=9)
+    d, i = knn(pts, pts[:, :5].contiguous(), 8)  # padded by repeating the nearest hit
+    assert torch.equal(i[..., 5:], i[..., :1].expand(-1, -1, 3))
 
 
 @pytest.mark.cuda

@@ -87,6 +87,66 @@ class TestKNN:
         np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=1e-5)
 
 
+def _knn_by_key(q, r, k):
+    """The order the CUDA kernel keeps, modelled in numpy: every candidate is
+    the 64-bit key ``(bits(d) << 32) | index`` of its float32 squared distance
+    (each product and sum rounded on its own, clamped at 0), and the result is
+    the ``k`` smallest keys in ascending order, whatever order they are met in."""
+    q, r = q.astype(np.float32), r.astype(np.float32)
+
+    def dot(a, b):
+        return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+    cross = dot(q[:, :, None, :], r[:, None, :, :])
+    d = np.maximum((dot(q, q)[:, :, None] + dot(r, r)[:, None, :]) - np.float32(2.0) * cross,
+                   np.float32(0.0))
+    assert d.dtype == np.float32
+    keys = (d.view(np.uint32).astype(np.uint64) << np.uint64(32)) | np.arange(
+        r.shape[1], dtype=np.uint64)
+    # met in a scrambled order, as the lanes of a warp meet them
+    order = np.random.default_rng(0).permutation(r.shape[1])
+    best = np.sort(keys[..., order], axis=-1)[..., :k]
+    return ((best >> np.uint64(32)).astype(np.uint32).view(np.float32),
+            (best & np.uint64(0xFFFFFFFF)).astype(np.int32))
+
+
+def _tie_heavy_case(name, rng):
+    if name == "duplicated reference points":
+        r = rng.normal(size=(2, 60, 3)).astype(np.float32)
+        return rng.normal(size=(2, 33, 3)).astype(np.float32), np.concatenate([r, r, r], 1), 16
+    if name == "integer grid":
+        g = np.stack(np.meshgrid(*[np.arange(5.0)] * 3, indexing="ij"), -1)
+        pts = np.tile(g.reshape(1, -1, 3).astype(np.float32), (2, 1, 1))
+        return pts[:, ::3], pts, 32
+    if name == "k = N":
+        return (rng.normal(size=(2, 40, 3)).astype(np.float32),
+                rng.normal(size=(2, 27, 3)).astype(np.float32), 27)
+    assert name == "coordinates at 50-80 m"
+    # |q|^2 + |r|^2 - 2 q.r cancels ~1e4 down to ~1: distances come out on a
+    # grid of 2^-10, many tie exactly, and some clamp to 0
+    base = rng.uniform(50.0, 80.0, size=(1, 1, 3))
+    r = (base + rng.normal(size=(2, 400, 3)) * 0.5).astype(np.float32)
+    return (base + rng.normal(size=(2, 50, 3)) * 0.5).astype(np.float32), r, 32
+
+
+@pytest.mark.parametrize("name", ["duplicated reference points", "integer grid", "k = N",
+                                  "coordinates at 50-80 m"])
+def test_knn_plain_keeps_the_key_order(rng, name):
+    """What the kernel's 64-bit keys must reproduce: ``knn_plain`` (a stable
+    sort of the same float32 distances) gives ascending distance, ties to the
+    lower index, to the bit."""
+    q, r, k = _tie_heavy_case(name, rng)
+    d, i = knn_plain(torch.from_numpy(q), torch.from_numpy(r), k)
+    kd, ki = _knn_by_key(q, r, k)
+    np.testing.assert_array_equal(i.numpy(), ki)
+    np.testing.assert_array_equal(d.numpy().view(np.uint32), kd.view(np.uint32))
+    ties = int((np.diff(kd, axis=-1) == 0).sum())
+    assert name == "k = N" or ties > 0, "the case must hold exact ties"
+    assert np.all(np.diff(kd, axis=-1) >= 0)
+    same = np.diff(kd, axis=-1) == 0
+    assert np.all(np.diff(ki, axis=-1)[same] > 0)  # of equal distances the lower index first
+
+
 class TestGather:
     def test_gather_points_bit_exact(self, rng):
         src = rng.normal(size=(2, 50, 19)).astype(np.float32)
