@@ -14,16 +14,20 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    pyramid stacks both frames): FPS indices identical (and the paired launch
    at most 1.1 x the time of one frame's), kNN distances and indices
    ``torch.equal`` at every shape of the path (k = 4, 6, 8, 16, 32), on an
-   integer grid and on duplicated points, gather bit-exact; FPS at every
-   cluster size and thread count and kNN at 2, 4 and 8 queries a block give
-   the same results and are timed; the fused MLP + max-pool
+   integer grid and on duplicated points, gather bit-exact (also at the train
+   step's widest groupings: B=16 M=32,768 C=19 and B=8 M=16,384 C=67); FPS
+   at every cluster size and thread count and kNN at 2, 4 and 8 queries a
+   block give the same results and are timed; the fused MLP + max-pool
    within atol 3e-5 / rtol 1e-4 and the fused attentive aggregate within
    atol 5e-5 / rtol 1e-4 (both sum in another order than the library's
    matmul), on weights folded from perturbed BatchNorm statistics; the
-   scatter-add (the gather's backward) at the batch-8 shapes of a train
-   step's backward, within 1e-5 of the largest segment's sum of magnitudes
-   of the plain version (whose float atomics add in another order) and
-   bit-equal to a second launch;
+   scatter-add (the gather's backward) at shapes of a train step's backward
+   (three batch-8 ones, and the B=16 level-2 grouping of the stacked
+   pyramid): ``torch.equal`` to the plain version on the CPU copy of its
+   inputs (a sequential loop over m, the order the kernel promises),
+   bit-equal to a second launch, and within 1e-5 of the largest segment's sum of magnitudes
+   of the plain version on the card (whose float atomics add in another
+   order);
 3. run the small config (256 points) on the card and on the CPU with the
    same seeded weights and inputs, and with ``fused_eval=True`` on the card
    against the unfused card run: pose params within atol 1e-4 / rtol 1e-3;
@@ -332,7 +336,8 @@ def gather_case(src: torch.Tensor, idx: torch.Tensor) -> dict:
     out = tgather.gather_points(src, idx)
     ref = tgather.gather_points_plain(src, idx)
     err = (out - ref).abs().max().item()
-    check(torch.equal(out, ref), f"gather M={idx.shape[1]} C={src.shape[2]}: bit-exact")
+    check(torch.equal(out, ref),
+          f"gather B={idx.shape[0]} M={idx.shape[1]} C={src.shape[2]}: bit-exact")
     b, _, c = src.shape
     m = idx.shape[1]
     rows = sum(int(torch.unique(idx[j]).numel()) for j in range(b))
@@ -350,7 +355,9 @@ def gather_case(src: torch.Tensor, idx: torch.Tensor) -> dict:
 
 def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: str) -> dict:
     """``idx (B, S, K)``: a grouping's neighbour indices into ``n`` source
-    rows; the incoming gradient is random, ``(B, S*K, c)``."""
+    rows; the incoming gradient is random, ``(B, S*K, c)``. The kernel adds
+    each row's updates in ascending m from 0.0f, as ``index_add_`` does on
+    the CPU: it must equal that to the bit."""
     b = idx.shape[0]
     flat = idx.reshape(b, -1).contiguous()
     m = flat.shape[1]
@@ -361,6 +368,10 @@ def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: 
     torch.cuda.synchronize()
     name = f"B={b} N={n} M={m} C={c} ({what})"
     check(torch.equal(out, again), f"scatter_add {name}: two launches agree to the bit")
+    loop = tgather.scatter_add_rows_plain(upd.cpu(), flat.cpu(), n)
+    check(torch.equal(out.cpu(), loop),
+          f"scatter_add {name}: equal to the plain version on the CPU to the bit "
+          f"({int((out.cpu() != loop).sum())} elements differ)")
     # the plain version's float atomics add in an order of their own: the
     # rounding of a sum is bounded by its terms' magnitudes
     scale = tgather.scatter_add_rows_plain(upd.abs(), flat, n).max().item()
@@ -383,17 +394,28 @@ def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: 
     }
 
 
-def scatter_cases(frames: torch.Tensor) -> list:
+def train_pyramid(frames: torch.Tensor) -> tuple:
+    """Levels 1 and 2 ``(16, 2048, 3)``, ``(16, 1024, 3)`` of a batch-8 train
+    step's pyramid, which stacks both frames of each pair on the batch axis:
+    ``frames (8, 8192, 3)``, eight prepared scans, and each one's successor,
+    give the real neighbour sets (and their skew) of the groupings."""
+    both = torch.cat([frames, frames.roll(-1, 0)])
+    l1 = tgather.gather_points(both, tfps.furthest_point_sample(both, 2048))
+    return l1, tgather.gather_points(l1, tfps.furthest_point_sample(l1, 1024))
+
+
+def scatter_cases(l1: torch.Tensor, l2: torch.Tensor) -> list:
     """The scatter-add at shapes of a full-width train step's backward:
-    ``frames (8, 8192, 3)``, eight prepared scans, give the real neighbour
-    sets (and their skew) of the groupings."""
-    gen = torch.Generator(device=frames.device).manual_seed(1)
-    l1 = tgather.gather_points(frames, tfps.furthest_point_sample(frames, 2048))
-    l2 = tgather.gather_points(l1, tfps.furthest_point_sample(l1, 1024))
+    batch-8 groupings of one frame (the shapes earlier versions of this
+    script timed, the first of them the kernels line's head), then the B=16
+    level-2 grouping of the stacked pyramid, as the train step launches it."""
+    gen = torch.Generator(device=l1.device).manual_seed(1)
+    f1, f2 = l1[:TRAIN_BATCH], l2[:TRAIN_BATCH]
     return [
-        scatter_case(gen, knn(l2, l1, 32)[1], 2048, 19, "level-2 SetConv grouping"),
-        scatter_case(gen, knn(l1, l2, 8)[1], 1024, 67, "level-1 SetUpConv grouping"),
-        scatter_case(gen, knn(l1, l1, 4)[1], 2048, 67, "level-1 cost-volume self grouping"),
+        scatter_case(gen, knn(f2, f1, 32)[1], 2048, 19, "level-2 SetConv grouping"),
+        scatter_case(gen, knn(f1, f2, 8)[1], 1024, 67, "level-1 SetUpConv grouping"),
+        scatter_case(gen, knn(f1, f1, 4)[1], 2048, 67, "level-1 cost-volume self grouping"),
+        scatter_case(gen, knn(l2, l1, 32)[1], 2048, 19, "level-2 SetConv grouping, both frames"),
     ]
 
 
@@ -499,7 +521,8 @@ def fused_kernel_cases() -> dict:
 
 def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) -> dict:
     """``scan``/``scan2``: two prepared full-width frames ``(1, 8192, 3)``;
-    ``frames``: eight of them, for the scatter-add's batch-8 shapes. FPS and
+    ``frames``: eight of them, for the train step's gather and scatter-add
+    shapes (batch 8, and 16 where the pyramid stacks both frames). FPS and
     kNN at every shape the main path gives them, and with both frames stacked
     on the batch axis as the siamese pyramid launches them."""
     cases = {"fps": [], "knn": [], "gather": []}
@@ -543,13 +566,22 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) 
                 + fps_variants(l3, 64)),
         "knn": knn_variants(l1, l0, 32) + knn_variants(l2, l1, 32) + knn_variants(l1, l1b, 6),
     }
+    # the level-1 index at B=1 first (the kernels line's head, as in earlier
+    # versions of this script), then the train step's widest groupings
     _, nn_idx = knn(l1, l0, 32)
     flat = nn_idx.reshape(1, -1).contiguous()  # M = 2048 * 32 = 65,536 rows
     cases["gather"].append(gather_case(scan, flat))
     gen = torch.Generator(device=scan.device).manual_seed(0)
     wide = torch.randn(1, 8192, 67, device=scan.device, generator=gen)
     cases["gather"].append(gather_case(wide, flat))
-    cases["scatter_add"] = scatter_cases(frames)
+    t1, t2 = train_pyramid(frames)
+    up = knn(t1[:TRAIN_BATCH], t2[:TRAIN_BATCH], 8)[1].reshape(TRAIN_BATCH, -1).contiguous()
+    cases["gather"].append(gather_case(
+        torch.randn(TRAIN_BATCH, 1024, 67, device=scan.device, generator=gen), up))
+    grouping = knn(t2, t1, 32)[1].reshape(2 * TRAIN_BATCH, -1).contiguous()
+    cases["gather"].append(gather_case(
+        torch.randn(2 * TRAIN_BATCH, 2048, 19, device=scan.device, generator=gen), grouping))
+    cases["scatter_add"] = scatter_cases(t1, t2)
     cases.update(fused_kernel_cases())
     return cases, variants
 
@@ -862,7 +894,7 @@ def summarize_device_events(device: list) -> dict:
     span_ms = (max(e.time_range.end for e in device)
                - min(e.time_range.start for e in device)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    # a scatter-add is four kernels: scatter_{count,scan,fill,sum}_kernel
+    # a scatter-add is four kernels: scatter_{rank,scan,fill,sum}_kernel
     ours = {name: sum(ms for k, (ms, _) in by_name.items()
                       if ("scatter_" in k and "_kernel" in k and "gather" not in k
                           if name == "scatter_add" else f"{name}_kernel" in k))

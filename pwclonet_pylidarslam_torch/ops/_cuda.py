@@ -44,7 +44,7 @@ _EXACT = ("--fmad=false",)
 SOURCE_FLAGS = {"fps.cu": _EXACT, "knn.cu": _EXACT, "gather.cu": _EXACT,
                 "scatter_add.cu": _EXACT}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
     # points, mask, b, n, npoint, out, cluster, threads, skeleton, stream
@@ -52,8 +52,8 @@ _SIGNATURES = {
     # query, ref, b, s, n, k, out_d, out_i, warps, stream
     "pwclo_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
-    # updates, idx, b, n, m, c, scratch, out, stream
-    "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # updates, idx, b, n, m, c, tile, scratch, scratch ints, out, stream
+    "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P),
     # x, params, centres, k, n_layers, c0..c3, out, stream
     "pwclo_mlp_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att params,
@@ -163,7 +163,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         err = fn(*args)
     if err == UNSUPPORTED_SHAPE:
         raise ValueError(f"{entry}: the kernel does not take this shape (layer counts, widths "
-                         "that do not chain, or a tile of K rows too large for shared memory)")
+                         "that do not chain, a tile of K rows too large for shared memory, or "
+                         "a tile or scratch size it does not take)")
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1

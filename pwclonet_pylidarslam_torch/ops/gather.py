@@ -43,6 +43,18 @@ def _check_rows_and_idx(name: str, rows: torch.Tensor, idx: torch.Tensor) -> Non
         )
 
 
+def scatter_add_plan(b: int, n: int, m: int) -> tuple:
+    """``(tile, scratch ints)`` of the scatter-add kernel: it ranks the
+    entries in tiles of ``tile`` consecutive entries of a sample (a power of
+    two, at least 256 and at least ``n``), and its scratch holds each entry's
+    rank within its tile and the inverted index (each row's updates in
+    ascending m), one int each an entry, then each tile's first slot of each
+    row."""
+    tile = max(256, 1 << (n - 1).bit_length())
+    tiles = max(1, -(-m // tile))
+    return tile, 2 * b * m + b * tiles * n
+
+
 def _gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check_rows_and_idx("src", src, idx)
     b, n, c = src.shape
@@ -65,13 +77,12 @@ def _scatter_add_rows_cuda(updates: torch.Tensor, idx: torch.Tensor, n: int) -> 
         raise ValueError(f"n must be >= 1, got {n}")
     out = torch.empty((b, n, c), dtype=updates.dtype, device=updates.device)
     if out.numel():
-        # counts, segment starts, members and ordered members of the inverted index
-        scratch = torch.empty(b * n + b * (n + 1) + 2 * b * m, dtype=torch.int32,
-                              device=updates.device)
+        tile, ints = scatter_add_plan(b, n, m)
+        scratch = torch.empty(ints, dtype=torch.int32, device=updates.device)
         _cuda.launch(
             "scatter_add", "pwclo_scatter_add", updates.device,
-            updates.data_ptr(), idx.data_ptr(), b, n, m, c, scratch.data_ptr(), out.data_ptr(),
-            _cuda.stream_of(updates),
+            updates.data_ptr(), idx.data_ptr(), b, n, m, c, tile, scratch.data_ptr(), ints,
+            out.data_ptr(), _cuda.stream_of(updates),
         )
     return out
 

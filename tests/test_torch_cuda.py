@@ -151,37 +151,85 @@ def test_knn_kernel_refuses_what_it_cannot_take(cuda_device):
     assert torch.equal(i[..., 5:], i[..., :1].expand(-1, -1, 3))
 
 
+# the path's widths at its widest calls, widths of one to 2101 floats, M no
+# multiple of 32 or of a tile, M = 0, B = 16
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 19, 35, 67])
-def test_gather_kernel_matches_plain(cuda_device, rng, c):
-    src = torch.from_numpy(rng.normal(size=(2, 8192, c)).astype(np.float32)).to(cuda_device)
-    idx = torch.from_numpy(rng.integers(0, 8192, size=(2, 65536)).astype(np.int32)).to(cuda_device)
-    torch.testing.assert_close(tgather.gather_points(src, idx),
-                               tgather.gather_points_plain(src, idx), rtol=0, atol=0)
+@pytest.mark.parametrize("b,n,m,c", [
+    (2, 8192, 65536, 3), (2, 8192, 65536, 19), (2, 8192, 65536, 35), (2, 8192, 65536, 67),
+    (16, 2048, 32768, 19), (8, 1024, 16384, 67), (16, 8192, 65536, 3), (3, 100, 1001, 1),
+    (2, 50, 77, 2), (1, 300, 333, 4), (5, 64, 31, 5), (16, 40, 257, 131), (2, 10, 0, 3),
+    (1, 1, 1, 1), (4, 7, 5000, 2101),
+])
+def test_gather_kernel_matches_plain(cuda_device, rng, b, n, m, c):
+    src = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(cuda_device)
+    out = tgather.gather_points(src, idx)
+    assert out.shape == (b, m, c) and torch.equal(out, tgather.gather_points_plain(src, idx))
 
 
-# full-width backward shapes at batch 8, then M no multiple of 128, a heavily
-# repeated index (three rows take every update), and rows that take none
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 4, 67])
+def test_gather_kernel_unaligned_source(cuda_device, rng, c):
+    """A contiguous source with a storage offset is not 16-byte aligned: the
+    kernel copies its rows all the same."""
+    b, n, m = 3, 500, 4099
+    flat = torch.from_numpy(rng.normal(size=b * n * c + 1).astype(np.float32)).to(cuda_device)
+    shifted = flat[1:].view(b, n, c)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    idx = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(cuda_device)
+    assert torch.equal(tgather.gather_points(shifted, idx), tgather.gather_points_plain(shifted, idx))
+
+
+def _scatter_add_exact(upd, idx, n):
+    out = tgather.scatter_add_rows(upd, idx, n)
+    again = tgather.scatter_add_rows(upd, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # no float atomics: the order of the adds is fixed
+    # the order the kernel promises is a sequential loop over m: index_add_ on the CPU
+    loop = tgather.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n)
+    assert torch.equal(out.cpu(), loop), f"{int((out.cpu() != loop).sum())} elements differ"
+    # the plain version on the card adds with atomics in another order: atol
+    # 1e-5 of the largest sum of magnitudes
+    scale = max(1.0, tgather.scatter_add_rows_plain(upd.abs(), idx, n).max().item())
+    torch.testing.assert_close(out, tgather.scatter_add_rows_plain(upd, idx, n),
+                               atol=1e-5 * scale, rtol=0)
+
+
+# full-width backward shapes at batch 8, N = 8192 at B = 16 (more rows than one
+# pass of shared-memory counters), then M no multiple of 128 or of a tile, a
+# heavily repeated index (three rows take every update), rows that take none
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,m,c,targets", [
     (8, 2048, 32768, 19, None), (8, 1024, 16384, 67, None), (8, 256, 1024, 131, None),
     (2, 100, 333, 5, None), (2, 64, 5000, 7, 3), (1, 4096, 50, 33, None),
+    (16, 2048, 32768, 19, None), (16, 8192, 32768, 1, None), (16, 8192, 32768, 19, None),
+    (16, 8192, 16384, 67, None), (16, 8192, 8192, 131, None), (3, 5000, 20001, 3, None),
+    (2, 10, 0, 4, None), (1, 1, 7, 1, None),
 ])
 def test_scatter_add_kernel_matches_plain_and_itself(cuda_device, rng, b, n, m, c, targets):
     upd = _rand(rng, cuda_device, b, m, c)
     high = n if targets is None else targets
     idx = torch.from_numpy(rng.integers(0, high, size=(b, m)).astype(np.int32)).to(cuda_device)
-    out = tgather.scatter_add_rows(upd, idx, n)
-    again = tgather.scatter_add_rows(upd, idx, n)
-    torch.cuda.synchronize()
-    assert torch.equal(out, again)  # no float atomics: the order of the adds is fixed
-    ref = tgather.scatter_add_rows_plain(upd, idx, n)
-    # the library's scatter adds in another order: atol 1e-5 of the largest sum
-    scale = max(1.0, tgather.scatter_add_rows_plain(upd.abs(), idx, n).max().item())
-    torch.testing.assert_close(out, ref, atol=1e-5 * scale, rtol=0)
-    # against a sequential loop over m on the CPU, the order the kernel promises
-    loop = tgather.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n)
-    torch.testing.assert_close(out.cpu(), loop, atol=1e-5 * scale, rtol=0)
+    _scatter_add_exact(upd, idx, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["32 each", "33 each", "one row takes 4096", "odd rows take none"])
+def test_scatter_add_kernel_segment_lengths(cuda_device, rng, case):
+    """Segments of exactly one and just over one warp's width, one long
+    segment among short ones, and rows that take no update (written 0)."""
+    b, n, c = 2, 700, 19
+    if case in ("32 each", "33 each"):
+        per = int(case.split()[0])
+        idx = np.stack([rng.permutation(np.repeat(np.arange(n), per)) for _ in range(b)])
+    elif case == "one row takes 4096":
+        idx = rng.integers(0, n, size=(b, 9000))
+        for row in idx:
+            row[rng.choice(9000, 4096, replace=False)] = 7
+    else:
+        idx = 2 * rng.integers(0, n // 2, size=(b, 5000))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+    _scatter_add_exact(_rand(rng, cuda_device, b, idx.shape[1], c), idx, n)
 
 
 @pytest.mark.cuda

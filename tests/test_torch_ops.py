@@ -220,3 +220,26 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         _attentive_aggregate_cuda(pts, x, pts, x, ((torch.ones(10, 3),), (torch.zeros(3),)),
                                   None, ((torch.ones(9, 3),), (torch.zeros(3),)), True)
+
+
+@pytest.mark.parametrize("b,n,m,tile,ints", [
+    # the train step's level-2 grouping: 16 tiles of 2048 entries a sample
+    (16, 2048, 32768, 2048, 2 * 16 * 32768 + 16 * 16 * 2048),
+    (8, 1024, 16384, 1024, 2 * 8 * 16384 + 8 * 16 * 1024),
+    # the train step's other shapes
+    (8, 2048, 12288, 2048, 2 * 8 * 12288 + 8 * 6 * 2048),
+    (8, 2048, 8192, 2048, 2 * 8 * 8192 + 8 * 4 * 2048),
+    (8, 1024, 6144, 1024, 2 * 8 * 6144 + 8 * 6 * 1024),
+    (16, 1024, 4096, 1024, 2 * 16 * 4096 + 16 * 4 * 1024),
+    (8, 256, 1536, 256, 2 * 8 * 1536 + 8 * 6 * 256),
+    (8, 64, 2048, 256, 2 * 8 * 2048 + 8 * 8 * 64),  # tiles of at least 256 entries
+    (3, 5000, 20001, 8192, 2 * 3 * 20001 + 3 * 3 * 5000),  # N no power of two
+    (1, 1, 7, 256, 2 * 7 + 1),
+    (2, 10, 0, 256, 2 * 10),  # no updates: one tile's row starts alone
+])
+def test_scatter_add_scratch(b, n, m, tile, ints):
+    """Tiles of a power of two >= max(256, N) entries; scratch of a rank and a
+    member an entry, and a first slot for each row in each tile, which comes
+    to at most M + tile ints a sample."""
+    assert tgather.scatter_add_plan(b, n, m) == (tile, ints)
+    assert ints - 2 * b * m <= b * (m + tile)

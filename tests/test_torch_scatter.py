@@ -25,10 +25,12 @@ def _case(seed, b, n, m, c, targets=None):
 
 
 # the shapes of the reference's own scatter and gradient tests, one with M no
-# multiple of 128 (the reference then takes its .at[].add fallback), and one
-# with a heavily repeated index: three rows take all 640 updates
+# multiple of 128 (the reference then takes its .at[].add fallback), one with
+# a heavily repeated index (three rows take all 640 updates), and a skewed one
+# whose segments run past a warp's 32 (five rows take ~260 updates each)
 @pytest.mark.parametrize("b,n,m,c,targets", [
     (2, 128, 256, 5, None), (2, 64, 128, 4, None), (2, 100, 333, 7, None), (2, 64, 640, 6, 3),
+    (2, 16, 1280, 3, 5),
 ])
 def test_scatter_add_matches_reference(b, n, m, c, targets):
     upd, idx = _case(1, b, n, m, c, targets)

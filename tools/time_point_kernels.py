@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the FPS and kNN kernels of a tree's ``pwclonet_pylidarslam_torch`` at
-every shape one full-width PWCLO-Net forward gives them, on one CUDA card.
+"""Time the point-op kernels of a tree's ``pwclonet_pylidarslam_torch`` at
+every shape the full-width PWCLO-Net gives them, on one CUDA card.
 
     python3 tools/time_point_kernels.py [--root DIR] [--reps N] [--per-frame]
+                                        [--ops fps,knn,gather,scatter_add]
 
 ``--root`` is the directory that holds the package (default: this
 repository). To compare two versions of a kernel, unpack the other tree
@@ -10,14 +11,33 @@ somewhere (``git archive <commit> pwclonet_pylidarslam_torch | tar -x -C
 build/parent``) and run this script on both roots in turns on one card:
 each run is a process of its own, so each builds and loads its own kernels.
 
-``--per-frame`` times the siamese pyramid's launches as two of one frame
-each (how the network launched them before it stacked both frames on the batch
-axis) and not as one of two frames.
+FPS and kNN are timed at the shapes of one forward, listed below. The gather
+and the scatter-add (the gather's backward) are timed at the shapes they
+really get: the script wraps the package's two CUDA wrappers
+(``ops/gather.py::_gather_points_cuda`` and ``_scatter_add_rows_cuda``)
+during one full-width fused forward at B=1 and one full-width train-mode
+forward and backward at batch 8 (the random-cloud batches of
+``train_net_torch.py``), records each call's shape, launches and index, and
+then times the kernel on that index (random source rows and updates) beside
+``torch.gather`` with a ready int64 index, or ``index_add_`` into fresh zeros
+with ready int64 rows, and the byte bound (each input read once, each output
+written once, over 3.35 TB/s), and checks the kernel against its plain
+version to the bit (``bit_equal``; the scatter-add's on the CPU copy of its
+inputs, a sequential loop over m). The scatter-add is also timed at one shape
+of skewed rows (``scatter_add_skewed``). Each kernel is timed twice: on inputs that
+repeated calls leave in the 50 MB L2 (``ms``), and alone after a 128 MB
+buffer is rewritten (``cold_ms``). A profile of that train-mode forward and
+backward gives what the two kernels really take there
+(``train_step_profile``).
+
+``--per-frame`` times the siamese pyramid's FPS and kNN launches as two of
+one frame each (how the network launched them before it stacked both frames
+on the batch axis) and not as one of two frames.
 
 Prints the card's name and power limit and one JSON object: device
 milliseconds per launch (the launches queued behind a sleeping kernel, so
-that the host's pace is not in them) by kernel and shape, and their sum
-weighted by the launches of one forward.
+that the host's pace is not in them) by kernel and shape, and their sums
+weighted by the launches of one forward or one train step.
 """
 
 from __future__ import annotations
@@ -31,6 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+TRAIN_BATCH = 8
 # (S level, N level, k, launches per forward, of the paired pyramid): levels
 # index the pyramid 8192 / 2048 / 1024 / 256 / 64; "b" marks the other frame
 KNN_SHAPES = [
@@ -45,20 +67,132 @@ FPS_SHAPES = [("0", 2048, 1, True), ("1", 1024, 1, True), ("2", 256, 1, True),
               ("3", 64, 1, True), ("3", 64, 1, False)]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     """Device time per call of ``fn()``: ``reps`` calls queued behind a
-    sleeping kernel, between two CUDA events."""
+    sleeping kernel, between two CUDA events. With ``flush``, a buffer
+    larger than the L2, it is rewritten before each call and each call is
+    timed alone: the call then finds its inputs in device memory, not in L2,
+    as the train step's backward finds them."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps if flush is not None else 1)]
     torch.cuda._sleep(60_000_000)  # tens of ms: the host queues every call meanwhile
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    if flush is None:
+        marks[0][0].record()
+        for _ in range(reps):
+            fn()
+        marks[0][1].record()
+    else:
+        for i, (start, end) in enumerate(marks):
+            flush.fill_(float(i))
+            start.record()
+            fn()
+            end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(start.elapsed_time(end) for start, end in marks) / reps
+
+
+def is_scatter_kernel(name: str) -> bool:
+    """A device kernel of the port's scatter-add (every version of it names
+    its kernels ``scatter_*_kernel``)."""
+    return "scatter_" in name and "_kernel" in name and "gather" not in name
+
+
+def step_profile(run) -> dict:
+    """Device time of the gather and scatter-add kernels in ``run()`` (one
+    train-mode forward and backward), from the profiler: their time, their
+    kernel launches, and every memset's (an earlier scatter-add began with
+    one), beside the device time of everything."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # the first profile of a process can lose its earliest device events
+    # while the tracer starts up: profile twice, keep the second
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"device_ms": sum(e.time_range.end - e.time_range.start for e in device) / 1e3}
+    for key, keep in (("gather", lambda k: "gather_kernel" in k), ("scatter_add", is_scatter_kernel),
+                      ("memset", lambda k: "Memset" in k)):
+        picked = [e for e in device if keep(e.name)]
+        out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start for e in picked) / 1e3
+        out[f"{key}_device_launches"] = len(picked)
+    return out
+
+
+def recorded_calls(gather_mod, run) -> dict:
+    """``run()`` with the gather and scatter-add CUDA wrappers of
+    ``gather_mod`` wrapped: ``{"gather" | "scatter_add": {(B, N, M, C):
+    [launches, the first call's int32 index (B, M)]}}`` in order of first
+    call."""
+    calls = {"gather": {}, "scatter_add": {}}
+    gather_cuda, scatter_cuda = gather_mod._gather_points_cuda, gather_mod._scatter_add_rows_cuda
+
+    def note(kind, key, idx):
+        calls[kind].setdefault(key, [0, idx.detach().clone()])[0] += 1
+
+    def gather(src, idx):
+        note("gather", (src.shape[0], src.shape[1], idx.shape[1], src.shape[2]), idx)
+        return gather_cuda(src, idx)
+
+    def scatter(updates, idx, n):
+        note("scatter_add", (updates.shape[0], n, updates.shape[1], updates.shape[2]), idx)
+        return scatter_cuda(updates, idx, n)
+
+    gather_mod._gather_points_cuda, gather_mod._scatter_add_rows_cuda = gather, scatter
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        gather_mod._gather_points_cuda, gather_mod._scatter_add_rows_cuda = gather_cuda, scatter_cuda
+    return calls
+
+
+def gather_row(gather_ops, key: tuple, launches: int, idx: torch.Tensor, reps: int,
+               flush: torch.Tensor) -> dict:
+    b, n, m, c = key
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src = torch.randn(b, n, c, device="cuda", generator=gen)
+    equal = torch.equal(gather_ops.gather_points(src, idx), gather_ops.gather_points_plain(src, idx))
+    index = idx.long()[..., None].expand(-1, -1, c)
+    rows = sum(int(torch.unique(idx[j]).numel()) for j in range(b))
+    nbytes = 4 * (b * m + rows * c + b * m * c)  # idx, the rows read, out
+    return {"shape": f"B={b} N={n} M={m} C={c}", "launches": launches, "bit_equal": equal,
+            "ms": device_ms(lambda: gather_ops.gather_points(src, idx), reps),
+            "cold_ms": device_ms(lambda: gather_ops.gather_points(src, idx), reps, flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": device_ms(lambda: torch.gather(src, 1, index), reps)}
+
+
+def scatter_row(gather_ops, key: tuple, launches: int, idx: torch.Tensor, reps: int,
+                flush: torch.Tensor) -> dict:
+    b, n, m, c = key
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    upd = torch.randn(b, m, c, device="cuda", generator=gen)
+    rows = (idx.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+    upd2d = upd.reshape(b * m, c)
+    longest = int(torch.bincount(rows).max()) if rows.numel() else 0
+    # the kernel adds in ascending m, as the plain version does on the CPU
+    equal = torch.equal(gather_ops.scatter_add_rows(upd, idx, n).cpu(),
+                        gather_ops.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n))
+    nbytes = 4 * (b * m * c + b * m + b * n * c)  # updates, idx, out
+    return {"shape": f"B={b} N={n} M={m} C={c}", "launches": launches,
+            "longest_segment": longest, "bit_equal": equal,
+            "ms": device_ms(lambda: gather_ops.scatter_add_rows(upd, idx, n), reps),
+            "cold_ms": device_ms(lambda: gather_ops.scatter_add_rows(upd, idx, n), reps, flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": device_ms(
+                lambda: upd.new_zeros((b * n, c)).index_add_(0, rows, upd2d), reps)}
+
+
+def weighted_sums(rows: list) -> dict:
+    return {"launches": sum(r["launches"] for r in rows),
+            **{key: sum(r["launches"] * r[key] for r in rows)
+               for key in ("ms", "cold_ms", "bound_ms", "library_ms")}}
 
 
 def main() -> int:
@@ -67,21 +201,68 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--per-frame", action="store_true",
                         help="the pyramid's launches as two of one frame, not one of two")
+    parser.add_argument("--ops", default="fps,knn,gather,scatter_add",
+                        help="comma-separated subset of fps, knn, gather, scatter_add")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    wanted = set(args.ops.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
     from pwclonet_pylidarslam_torch import ops
+    from pwclonet_pylidarslam_torch.core import se3
     from pwclonet_pylidarslam_torch.data.synthetic import (
         SyntheticSequenceConfig,
         generate_sequence,
     )
+    from pwclonet_pylidarslam_torch.models import PWCLONetConfig
+    from pwclonet_pylidarslam_torch.ops import gather as gather_mod
     from pwclonet_pylidarslam_torch.slam.deep_odometry import DeepOdometryConfig, PWCLONetOdometry
+    from pwclonet_pylidarslam_torch.train import state as tstate
 
     scans, _ = generate_sequence(SyntheticSequenceConfig(n_frames=2, seed=0))
-    odo = PWCLONetOdometry(None, DeepOdometryConfig(), seed=0)
+    odo = PWCLONetOdometry(None, DeepOdometryConfig(model=PWCLONetConfig(fused_eval=True)), seed=0)
     both = torch.from_numpy(np.stack([odo._prepare(s) for s in scans])).cuda()  # (2, 8192, 3)
+    out = {"root": args.root}
+
+    if wanted & {"gather", "scatter_add"}:
+        def forward():
+            with torch.inference_mode():
+                odo.model(both[1:2], both[0:1])
+
+        # the random-cloud batch of train_net_torch.py (seed 0), first of its epoch
+        r = np.random.default_rng(0)
+        pts1 = r.normal(size=(TRAIN_BATCH, 8192, 3)).astype(np.float32) * 8
+        pose = se3.exp(torch.from_numpy((r.normal(size=(TRAIN_BATCH, 6)) * 0.05).astype(np.float32)))
+        batch = {"xyz1": pts1, "xyz2": se3.transform(pose, torch.from_numpy(pts1)).numpy(),
+                 "gt_params": se3.pose_to_params_quat(pose).numpy().astype(np.float32)}
+        cfg = tstate.TrainConfig(model=PWCLONetConfig(), total_steps=1000)
+        state = tstate.create_train_state(cfg, seed=0)
+        fwd = recorded_calls(gather_mod, forward)
+        step = recorded_calls(gather_mod, lambda: tstate.loss_and_grads(cfg, state, batch))
+        out["train_step_profile"] = step_profile(lambda: tstate.loss_and_grads(cfg, state, batch))
+        del state
+        torch.cuda.empty_cache()
+        flush = torch.empty(32 << 20, device="cuda")  # 128 MB, over twice the L2
+        for name, kind, calls, row_fn in (
+                ("gather_forward", "gather", fwd, gather_row),
+                ("gather_train_step", "gather", step, gather_row),
+                ("scatter_add_train_step", "scatter_add", step, scatter_row)):
+            if kind not in wanted:
+                continue
+            out[name] = [row_fn(gather_mod, key, launches, idx, args.reps, flush)
+                         for key, (launches, idx) in calls[kind].items()]
+            out[f"{name}_sums"] = weighted_sums(out[name])
+        if "scatter_add" in wanted:
+            # not a path shape: the level-2 grouping's size with one row of
+            # each sample taking 4,096 of its updates, the cost of skew
+            skew = np.random.default_rng(2)
+            idx = skew.integers(0, 2048, size=(2 * TRAIN_BATCH, 32768))
+            idx[:, skew.choice(32768, 4096, replace=False)] = 7
+            out["scatter_add_skewed"] = scatter_row(
+                gather_mod, (2 * TRAIN_BATCH, 2048, 32768, 19), 0,
+                torch.from_numpy(idx.astype(np.int32)).cuda(), args.reps, flush)
+
     levels = [both]
     for npoint in (2048, 1024, 256, 64):
         idx = ops.furthest_point_sample(levels[-1], npoint)
@@ -93,29 +274,38 @@ def main() -> int:
             return lv
         return lv[1:2] if name.endswith("b") else lv[0:1]
 
-    out = {"root": args.root, "knn": [], "fps": []}
     def split(launches: int, paired: bool) -> tuple:
         return (2 * launches, False) if paired and args.per_frame else (launches, paired)
 
-    for s, n, k, launches, paired in KNN_SHAPES:
-        launches, paired = split(launches, paired)
-        q, r = cloud(s, paired), cloud(n, paired)
-        ms = device_ms(lambda: ops.knn(q, r, k), args.reps)
-        out["knn"].append({"shape": f"B={q.shape[0]} S={q.shape[1]} N={r.shape[1]} k={k}",
-                           "launches": launches, "ms": ms})
-    for n, npoint, launches, paired in FPS_SHAPES:
-        launches, paired = split(launches, paired)
-        p = cloud(n, paired)
-        ms = device_ms(lambda: ops.furthest_point_sample(p, npoint), max(3, args.reps // 4))
-        out["fps"].append({"shape": f"B={p.shape[0]} N={p.shape[1]} npoint={npoint}",
-                           "launches": launches, "ms": ms})
+    if "knn" in wanted:
+        out["knn"] = []
+        for s, n, k, launches, paired in KNN_SHAPES:
+            launches, paired = split(launches, paired)
+            q, r = cloud(s, paired), cloud(n, paired)
+            ms = device_ms(lambda: ops.knn(q, r, k), args.reps)
+            out["knn"].append({"shape": f"B={q.shape[0]} S={q.shape[1]} N={r.shape[1]} k={k}",
+                               "launches": launches, "ms": ms})
+    if "fps" in wanted:
+        out["fps"] = []
+        for n, npoint, launches, paired in FPS_SHAPES:
+            launches, paired = split(launches, paired)
+            p = cloud(n, paired)
+            ms = device_ms(lambda: ops.furthest_point_sample(p, npoint), max(3, args.reps // 4))
+            out["fps"].append({"shape": f"B={p.shape[0]} N={p.shape[1]} npoint={npoint}",
+                               "launches": launches, "ms": ms})
     for name in ("knn", "fps"):
-        out[f"{name}_ms_per_forward"] = sum(c["launches"] * c["ms"] for c in out[name])
-        out[f"{name}_launches_per_forward"] = sum(c["launches"] for c in out[name])
+        if name in out:
+            out[f"{name}_ms_per_forward"] = sum(c["launches"] * c["ms"] for c in out[name])
+            out[f"{name}_launches_per_forward"] = sum(c["launches"] for c in out[name])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip())
     print(json.dumps(out))
-    return 0
+    rows = [r for key, v in out.items() if key.startswith(("gather_", "scatter_add_"))
+            and not key.endswith(("_sums", "_profile")) for r in (v if isinstance(v, list) else [v])]
+    unequal = [r["shape"] for r in rows if not r["bit_equal"]]
+    if unequal:
+        print(f"not equal to the plain version to the bit: {unequal}", file=sys.stderr)
+    return 1 if unequal else 0
 
 
 if __name__ == "__main__":
