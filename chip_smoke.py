@@ -20,7 +20,8 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    block give the same results and are timed; the fused MLP + max-pool
    within atol 3e-5 / rtol 1e-4 and the fused attentive aggregate within
    atol 5e-5 / rtol 1e-4 (both sum in another order than the library's
-   matmul), on weights folded from perturbed BatchNorm statistics; the
+   matmul; the aggregate multiplies in 3xTF32 on the tensor cores), also at
+   KITTI's reach of 80 m, on weights folded from perturbed BatchNorm statistics; the
    scatter-add (the gather's backward) at shapes of a train step's backward
    (three batch-8 ones, and the B=16 level-2 grouping of the stacked
    pyramid): ``torch.equal`` to the plain version on the CPU copy of its
@@ -61,7 +62,8 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    ``process_sequence``, and each kernel beside its plain version, one
    PyTorch library call where one computes the same function, and its bound
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM's
-   published peaks). A kernel's ``ms`` is the device's time per call, taken
+   published peaks; for the aggregate, which multiplies in 3xTF32, three
+   TF32 products for each over 495 TFLOP/s, its fp32 bound beside). A kernel's ``ms`` is the device's time per call, taken
    with the calls queued behind a sleeping kernel; ``call_ms`` is the time
    per call when Python launches them one after another. FPS also gets
    ``chain_bound_ms``: the time of its chain of ``npoint - 1`` dependent
@@ -131,6 +133,7 @@ import train_net_torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores, published
+TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores, published
 # launches of each kernel per forward pair, read off models/pwclonet.py (the
 # pyramid samples and groups both frames in one launch, stacked on the batch):
 # FPS: 4 pyramid levels + the flow-embedding SetConv;
@@ -240,8 +243,8 @@ def kernel_times(kernel, plain, library, reps: int, plain_reps: int) -> dict:
     return out
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -461,11 +464,21 @@ def mlp_case(gen: torch.Generator, s: int, k: int, cin: int, widths: tuple) -> d
     }
 
 
-def aggregate_case(gen: torch.Generator, s: int, k: int, cc: int, cg: int, cross: bool) -> dict:
+def aggregate_case(gen: torch.Generator, s: int, k: int, cc: int, cg: int, cross: bool,
+                   reach: float = 0.0) -> dict:
     """Cross stage: emb stack (128, 64, 64) over [enc, cf, gf]; self stage: no
-    emb stack, centre features in the attention. D = 64 in both."""
+    emb stack, centre features in the attention. D = 64 in both. Centres
+    normal with 10 m deviation, or with ``reach`` at KITTI scale: uniform in
+    direction, at 2 m to ``reach`` m; neighbours within about a metre. The
+    kernel runs on the tensor cores in 3xTF32 (three TF32 products for each
+    fp32 one): ``bound_ms`` counts those at 495 TFLOP/s, ``bound_fp32_ms``
+    the products in fp32 on the CUDA cores at 67."""
     d = 64
-    cxyz = (torch.randn(1, s, 3, generator=gen) * 10.0).cuda()
+    if reach:
+        direction = torch.nn.functional.normalize(torch.randn(1, s, 3, generator=gen), dim=-1)
+        cxyz = (direction * (2.0 + (reach - 2.0) * torch.rand(1, s, 1, generator=gen))).cuda()
+    else:
+        cxyz = (torch.randn(1, s, 3, generator=gen) * 10.0).cuda()
     gxyz = cxyz[:, :, None, :] + torch.randn(1, s, k, 3, generator=gen).cuda()
     cfeat = torch.randn(1, s, cc, generator=gen).cuda()
     gfeat = torch.randn(1, s, k, cg, generator=gen).cuda()
@@ -477,17 +490,17 @@ def aggregate_case(gen: torch.Generator, s: int, k: int, cc: int, cg: int, cross
     ref = attentive_aggregate_plain(*args)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    name = f"{'cross' if cross else 'self'} ({s},{k},{cc},{cg})"
+    name = f"{'cross' if cross else 'self'} ({s},{k},{cc},{cg}){f' at {reach:g} m' if reach else ''}"
     check(torch.allclose(out, ref, atol=5e-5, rtol=1e-4),
           f"attentive_aggregate {name}: within atol 5e-5 rtol 1e-4 of plain (max {err:.3g})")
     stacks = [wb for wb in (enc_wb, emb_wb, att_wb) if wb is not None]
     nbytes = 4 * sum(t.numel() for t in (cxyz, gxyz, cfeat, gfeat, out)) + sum(
         stack_bytes(wb) for wb in stacks)
     macs = sum(stack_macs(wb[0][0].shape[0], wb) for wb in stacks)
-    bnd, by = bound_ms(nbytes, 2.0 * s * k * macs)
+    bnd, by = bound_ms(nbytes, 6.0 * s * k * macs, TF32_FLOPS)
     return {
         "shape": name, "max_abs_err": err,
-        "bound_ms": bnd, "bound_by": by,
+        "bound_ms": bnd, "bound_by": by, "bound_fp32_ms": bound_ms(nbytes, 2.0 * s * k * macs)[0],
         **kernel_times(lambda: ops.attentive_aggregate(*args),
                        lambda: attentive_aggregate_plain(*args), None, 50, 20),
     }
@@ -495,7 +508,10 @@ def aggregate_case(gen: torch.Generator, s: int, k: int, cc: int, cg: int, cross
 
 def fused_kernel_cases() -> dict:
     """The two fused kernels at the shapes the full-width main path (B=1)
-    gives them; no single PyTorch call computes either, so no library time."""
+    gives them (the shapes and stack widths ``tools/time_point_kernels.py
+    --ops attentive_aggregate,mlp_maxpool`` records from a forward), and the
+    aggregate's widest at KITTI's reach; no single PyTorch call computes
+    either, so no library time."""
     gen = torch.Generator().manual_seed(0)
     mlp = [
         mlp_case(gen, 2048, 8, 67, (128, 64)),  # level-1 SetUpConv: the most work
@@ -515,6 +531,7 @@ def fused_kernel_cases() -> dict:
         aggregate_case(gen, 1024, 4, 32, 64, cross=False),
         aggregate_case(gen, 2048, 6, 16, 16, cross=True),
         aggregate_case(gen, 2048, 4, 16, 64, cross=False),
+        aggregate_case(gen, 2048, 6, 16, 16, cross=True, reach=80.0),  # KITTI's reach
     ]
     return {"mlp_maxpool": mlp, "attentive_aggregate": aggregate}
 

@@ -10,75 +10,123 @@
 // from the coordinates, no concatenation is built (a first layer reads its
 // inputs part by part against row ranges of its weight, the centre features
 // once per centre and not once per neighbour), both stacks, the attention
-// and the softmax stay on chip, and only (centres, D) is written. Unlike
-// the TPU kernel nothing is padded and sliced back: a block takes the next
-// tile_centres whole centres of the flat (batch x centre) axis, so neither
-// the softmax nor the sum over K straddles blocks, and the last block takes
-// what is left. K need not be a power of two (the main path has K = 4, 6, 32).
+// and the softmax stay on chip, and only (centres, D) is written. A block
+// takes the next tile_centres whole centres of the flat (batch x centre)
+// axis, so neither the softmax nor the sum over K straddles blocks, and the
+// last block takes what is left. K need not be a power of two (the main
+// path has K = 4, 6, 32).
 //
-// What bounds it: operations (2 * rows * sum of Cin * Cout in fp32 on the
-// CUDA cores: the reference's full-f32 products, no TF32, no tensor cores).
-// Design: a tile of at most about kTargetRows rows (fewer where the call is
-// small, tile_centres_for); shared memory holds the encoding, the tile's
-// centre features, the grouped features and two or three work buffers of
-// rows x ld floats: about 60 KB for a 32-row tile at the widest call and
-// twice that for a 64-row one, so one to three
-// blocks share an SM. Layers are the register-tiled dense_relu of
-// dense_tile.cuh. The softmax subtracts the max over K, divides by the sum
-// (a true division), then weights emb; expf, sqrtf and / at IEEE rounding.
+// What bounds it: operations. The reference computes every product at
+// Precision.HIGHEST, so the fp32 bound is 2 x rows x (sum of Cin x Cout) over
+// 67 TFLOP/s on the CUDA cores; 3xTF32 on the tensor cores does three TF32
+// products for each, 6 x rows x (sum of Cin x Cout) over 495 TFLOP/s: 2.5x
+// less. The layers run on the tensor cores in 3xTF32 (tf32x3.cuh), which
+// keeps fp32's accuracy (within atol 5e-5 / rtol 1e-4 of the plain version in
+// full fp32, also at KITTI's 80 m). Every block streams every layer's
+// weights from L2 (0.11-0.23 MB a block at the path's widths) through a ring
+// of shared-memory slabs by bulk asynchronous copies (TMA), the next slab
+// loading while the current one is multiplied.
+//
+// Tile: 16 to 64 rows (one to four 16-row mma tiles, tile_centres whole
+// centres; the wrapper takes the widest whose blocks still number at least
+// half the SMs: a wider tile streams the weights for more rows); 8 warps,
+// each a row tile and a share of the n-tiles of every layer. Shared memory
+// holds the weight ring (24 KB), the biases and an arena for the encoding,
+// the tile's centre and grouped features and the layers' outputs, placed by
+// liveness: at most 102 KB at the path's shapes, so that two blocks
+// share an SM (the kernel is bound by latency as much as by the tensor
+// cores, and the second block hides it). Timed on the path's shapes and
+// slower or no faster (PERF.md, PR 7): 16 warps a block, with 64- or
+// 128-row tiles; tiles that give every SM two blocks; splitting a narrow
+// tile's k-steps among its warps; weights split into TF32 planes before
+// they reach shared memory (8 bytes a weight); per-thread cp.async for the
+// weights; a fourth ring slot.
+// The softmax subtracts the max over K, divides by the sum (a true
+// division), then weights emb; expf, sqrtf and / at IEEE rounding.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
-#include "dense_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using namespace pwclo;
+using namespace pwclo_tc;
 
-constexpr int kTargetRows = 64;
 constexpr int kEnc = 10;
-constexpr int kEncLd = 11;
+constexpr int kEncLd = act_ld(kEnc);  // 20
+constexpr int kMaxStackLayers = 3;
 
 struct Layout {  // offsets in floats into dynamic shared memory
-  int enc, cfeat, gfeat, work;
-  int ld_c, ld_g, ld_w, n_work;
-  int rows_pad, tile_centres;
+  int bias, enc, cfeat, gfeat;
+  int ld_c, ld_g;
+  int att, att_ld, emb, emb_ld;  // the last layer's output and the embedding
+  int rows_pad;
 };
 
-// first work buffer that is neither a nor b (three buffers, or two when only
-// one can be excluded)
-__device__ inline float* pick(float* work, int stride, int n_work, const float* a,
-                              const float* b) {
-  for (int i = 0; i < n_work; ++i) {
-    float* w = work + static_cast<size_t>(i) * stride;
-    if (w != a && w != b) return w;
+// dst[r * ld + j] = src[r * width + j] for r < rows, j < width, by cp.async;
+// 0 for width <= j < pad8(width) and for rows <= r < rows_pad
+__device__ inline void stage_rows(float* dst, int ld, const float* src, int width, int rows,
+                                  int rows_pad) {
+  const int padded = pad8(width);
+  if (width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const int chunks = width / 4;
+    for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+      const int r = i / chunks, j = (i - r * chunks) * 4;
+      cp_async16(dst + r * ld + j, src + static_cast<size_t>(r) * width + j);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * width; i += kThreads) {
+      const int r = i / width, j = i - r * width;
+      cp_async4(dst + r * ld + j, src + static_cast<size_t>(r) * width + j);
+    }
   }
-  return nullptr;
+  const int tail = padded - width;
+  for (int i = threadIdx.x; i < rows * tail; i += kThreads) {
+    const int r = i / tail;
+    dst[r * ld + width + (i - r * tail)] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < (rows_pad - rows) * padded; i += kThreads) {
+    const int r = i / padded;
+    dst[(rows + r) * ld + (i - r * padded)] = 0.0f;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attentive_aggregate_kernel(const float* __restrict__ cxyz, const float* __restrict__ gxyz,
+__global__ void __launch_bounds__(kThreads, 2)
+attentive_aggregate_kernel(const __grid_constant__ Program prog,
+                           const float* __restrict__ cxyz, const float* __restrict__ gxyz,
                            const float* __restrict__ cfeat, const float* __restrict__ gfeat,
-                           Stack enc_st, Stack emb_st, Stack att_st, int centres, int k, int cc,
-                           int cg, int att_includes_center, Layout lay,
-                           float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* enc = smem + lay.enc;
-  float* cf = smem + lay.cfeat;
-  float* gf = smem + lay.gfeat;
-  float* work = smem + lay.work;
-  const int rows_pad = lay.rows_pad;
-  const int stride = rows_pad * lay.ld_w;
+                           int centres, int k, int cc, int cg, int d, int tile_centres,
+                           Layout lay, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ uint64_t full[kStages];
+  const Ring ring{smem, full};
+  init_ring(ring);
 
-  const int c0 = blockIdx.x * lay.tile_centres;
-  const int nc = min(lay.tile_centres, centres - c0);
+  const int c0 = blockIdx.x * tile_centres;
+  const int nc = min(tile_centres, centres - c0);
   const int rows = nc * k;
   const size_t row0 = static_cast<size_t>(c0) * k;
 
+  // centre features, one row per centre, and grouped features, one row per
+  // pair, copied asynchronously (16 bytes at a time where rows allow);
+  // columns past the width and the pad rows zero
+  float* cf = smem + lay.cfeat;
+  const float* cf_src = cfeat + static_cast<size_t>(c0) * cc;
+  float* gf = smem + lay.gfeat;
+  const float* gf_src = gfeat + row0 * cg;
+  stage_rows(cf, lay.ld_c, cf_src, cc, nc, nc);
+  stage_rows(gf, lay.ld_g, gf_src, cg, rows, lay.rows_pad);
+  __syncthreads();  // the ring's barriers set up
+  const SlabCursor next = prefetch_program(prog, ring, smem + lay.bias);
+
   // 10-d spatial encoding of every (centre, neighbour) pair; zero pad rows
-  for (int r = threadIdx.x; r < rows_pad; r += blockDim.x) {
+  // and the columns up to 16
+  float* enc = smem + lay.enc;
+  for (int r = threadIdx.x; r < lay.rows_pad; r += blockDim.x) {
     float* e = enc + r * kEncLd;
     if (r < rows) {
       const float* p = cxyz + static_cast<size_t>(c0 + r / k) * 3;
@@ -93,163 +141,160 @@ attentive_aggregate_kernel(const float* __restrict__ cxyz, const float* __restri
     } else {
       for (int i = 0; i < kEnc; ++i) e[i] = 0.0f;
     }
-  }
-  // centre features, one row per centre; grouped features, one row per pair
-  const float* cf_src = cfeat + static_cast<size_t>(c0) * cc;
-  for (int idx = threadIdx.x; idx < nc * cc; idx += blockDim.x) {
-    const int c = idx / cc;
-    cf[c * lay.ld_c + (idx - c * cc)] = cf_src[idx];
-  }
-  const float* gf_src = gfeat + row0 * cg;
-  for (int idx = threadIdx.x; idx < rows_pad * cg; idx += blockDim.x) {
-    const int r = idx / cg;
-    gf[r * lay.ld_g + (idx - r * cg)] = r < rows ? gf_src[idx] : 0.0f;
-  }
-  __syncthreads();
-
-  const Part enc_part{enc, kEncLd, kEnc, 1, rows_pad - 1};
-  const Part cf_part{cf, lay.ld_c, cc, k, nc - 1};
-
-  // emb = MLP_emb([enc, center_feat, grouped_feat]), or grouped_feat itself
-  const float* emb = gf;
-  int ld_emb = lay.ld_g;
-  int d = cg;
-  if (emb_st.n > 0) {
-    const float* params = emb_st.params;
-    Parts parts;
-    parts.n = 3;
-    parts.p[0] = enc_part;
-    parts.p[1] = cf_part;
-    parts.p[2] = Part{gf, lay.ld_g, cg, 1, rows_pad - 1};
-    int cin = emb_st.cin;
-    const float* cur = nullptr;
-    for (int layer = 0; layer < emb_st.n; ++layer) {
-      const int cout = emb_st.cout[layer];
-      float* dst = pick(work, stride, lay.n_work, cur, nullptr);
-      dense_relu(parts, params, params + cin * cout, cout, dst, lay.ld_w, rows_pad);
-      __syncthreads();
-      params += cin * cout + cout;
-      cin = cout;
-      cur = dst;
-      parts = one_part(cur, lay.ld_w, cin, rows_pad);
-    }
-    emb = cur;
-    ld_emb = lay.ld_w;
-    d = cin;
+    for (int i = kEnc; i < pad8(kEnc); ++i) e[i] = 0.0f;
   }
 
-  // e = MLP_enc(enc)
-  const float* e_out = nullptr;
-  int d_enc = kEnc;
-  {
-    const float* params = enc_st.params;
-    Parts parts;
-    parts.n = 1;
-    parts.p[0] = enc_part;
-    for (int layer = 0; layer < enc_st.n; ++layer) {
-      const int cout = enc_st.cout[layer];
-      float* dst = pick(work, stride, lay.n_work, e_out, emb);
-      dense_relu(parts, params, params + d_enc * cout, cout, dst, lay.ld_w, rows_pad);
-      __syncthreads();
-      params += d_enc * cout + cout;
-      d_enc = cout;
-      e_out = dst;
-      parts = one_part(e_out, lay.ld_w, d_enc, rows_pad);
-    }
-  }
-
-  // att = MLP_att([e, (center_feat,) emb])
-  float* att = nullptr;
-  {
-    const float* params = att_st.params;
-    Parts parts;
-    parts.n = 0;
-    parts.p[parts.n++] = Part{e_out, lay.ld_w, d_enc, 1, rows_pad - 1};
-    if (att_includes_center) parts.p[parts.n++] = cf_part;
-    parts.p[parts.n++] = Part{emb, ld_emb, d, 1, rows_pad - 1};
-    int cin = att_st.cin;
-    for (int layer = 0; layer < att_st.n; ++layer) {
-      const int cout = att_st.cout[layer];
-      // the first layer still reads e; later layers may overwrite it
-      float* dst = pick(work, stride, lay.n_work, layer == 0 ? e_out : att, emb);
-      dense_relu(parts, params, params + cin * cout, cout, dst, lay.ld_w, rows_pad);
-      __syncthreads();
-      params += cin * cout + cout;
-      cin = cout;
-      att = dst;
-      parts = one_part(att, lay.ld_w, cin, rows_pad);
-    }
-  }
+  run_program(prog, next, smem, ring, smem + lay.bias, nc - 1);
 
   // softmax over the K neighbours, then the weighted sum of emb; a thread
   // owns one (centre, channel) column of att and reuses it for the exps
+  float* att = smem + lay.att;
+  const float* emb = smem + lay.emb;
   for (int idx = threadIdx.x; idx < nc * d; idx += blockDim.x) {
     const int c = idx / d;
     const int j = idx - c * d;
-    float* a = att + static_cast<size_t>(c) * k * lay.ld_w + j;
-    const float* v = emb + static_cast<size_t>(c) * k * ld_emb + j;
+    float* a = att + c * k * lay.att_ld + j;
+    const float* v = emb + c * k * lay.emb_ld + j;
     float m = a[0];
-    for (int kk = 1; kk < k; ++kk) m = fmaxf(m, a[kk * lay.ld_w]);
+#pragma unroll 4
+    for (int kk = 1; kk < k; ++kk) m = fmaxf(m, a[kk * lay.att_ld]);
     float sum = 0.0f;
+#pragma unroll 4
     for (int kk = 0; kk < k; ++kk) {
-      const float ex = expf(a[kk * lay.ld_w] - m);
-      a[kk * lay.ld_w] = ex;
+      const float ex = expf(a[kk * lay.att_ld] - m);
+      a[kk * lay.att_ld] = ex;
       sum += ex;
     }
     float acc = 0.0f;
-    for (int kk = 0; kk < k; ++kk) acc += (a[kk * lay.ld_w] / sum) * v[kk * ld_emb];
+#pragma unroll 4
+    for (int kk = 0; kk < k; ++kk) acc += (a[kk * lay.att_ld] / sum) * v[kk * lay.emb_ld];
     out[static_cast<size_t>(c0 + c) * d + j] = acc;
   }
 }
 
+struct StackArgs {
+  const float* params;  // packed layers (pack_fragments)
+  int n;
+  int cout[kMaxStackLayers];
+};
+
 }  // namespace
 
 // center_xyz (centres, 3), grouped_xyz (centres, K, 3), center_feat (centres, cc),
-// grouped_feat (centres, K, cg), out (centres, D), all f32. Each stack's params
-// are W0, b0, W1, b1, ... packed; n_emb = 0 takes grouped_feat as the embedding.
-// Input widths follow from the rest: enc 10; emb 10 + cc + cg; att
-// enc_out + (cc if att_includes_center) + D, with D = emb_out or cg.
+// grouped_feat (centres, K, cg), out (centres, D), all f32. Each stack's
+// params are its layers packed by ops/costvolume.py::pack_fragments, the first
+// layer's rows padded part by part: enc [10]; emb [10, cc, cg]; att
+// [enc_out, (cc,) D], with D = emb_out, or cg where n_emb = 0 (grouped_feat
+// is the embedding). A block takes tile_centres centres (K x tile_centres
+// rows, at most 8 x 16 after padding).
 extern "C" int pwclo_attentive_aggregate(
     const void* center_xyz, const void* grouped_xyz, const void* center_feat,
     const void* grouped_feat, const void* enc_params, const void* emb_params,
     const void* att_params, int centres, int k, int cc, int cg, int n_enc, int e1, int e2,
     int e3, int n_emb, int m1, int m2, int m3, int n_att, int a1, int a2, int a3,
-    int att_includes_center, void* out, void* stream) {
-  if (k < 1 || cc < 1 || cg < 1 || centres < 0) return kUnsupportedShape;
-  const Stack enc_st = make_stack(enc_params, n_enc, kEnc, e1, e2, e3);
-  const Stack emb_st = make_stack(emb_params, n_emb, kEnc + cc + cg, m1, m2, m3);
-  if (!stack_ok(enc_st, 1) || !stack_ok(emb_st, 0)) return kUnsupportedShape;
-  const int d = n_emb > 0 ? stack_out(emb_st) : cg;
-  const Stack att_st = make_stack(
-      att_params, n_att, stack_out(enc_st) + (att_includes_center ? cc : 0) + d, a1, a2, a3);
-  if (!stack_ok(att_st, 1) || stack_out(att_st) != d) return kUnsupportedShape;
+    int att_includes_center, int tile_centres, void* out, void* stream) {
+  const StackArgs enc_st{static_cast<const float*>(enc_params), n_enc, {e1, e2, e3}};
+  const StackArgs emb_st{static_cast<const float*>(emb_params), n_emb, {m1, m2, m3}};
+  const StackArgs att_st{static_cast<const float*>(att_params), n_att, {a1, a2, a3}};
+  if (k < 1 || cc < 1 || cg < 1 || centres < 0 || tile_centres < 1) return kUnsupported;
+  if (n_enc < 1 || n_enc > kMaxStackLayers || n_emb < 0 || n_emb > kMaxStackLayers ||
+      n_att < 1 || n_att > kMaxStackLayers)
+    return kUnsupported;
+  const int d = n_emb > 0 ? emb_st.cout[n_emb - 1] : cg;
+  if (att_st.cout[n_att - 1] != d) return kUnsupported;
   if (centres == 0) return 0;
 
-  Layout lay;
-  lay.tile_centres = tile_centres_for(centres, k, kTargetRows);
-  lay.rows_pad = round_up(lay.tile_centres * k, kRowTile);
-  int width = stack_max_width(enc_st);
-  if (stack_max_width(att_st) > width) width = stack_max_width(att_st);
-  if (n_emb > 0 && stack_max_width(emb_st) > width) width = stack_max_width(emb_st);
-  lay.ld_c = lead_dim(cc);
-  lay.ld_g = lead_dim(cg);
-  lay.ld_w = lead_dim(width);
-  lay.n_work = n_emb > 0 ? 3 : 2;
-  lay.enc = 0;
-  lay.cfeat = lay.enc + lay.rows_pad * kEncLd;
-  lay.gfeat = lay.cfeat + lay.tile_centres * lay.ld_c;
-  lay.work = lay.gfeat + lay.rows_pad * lay.ld_g;
-  const int64_t total =
-      static_cast<int64_t>(lay.work) + static_cast<int64_t>(lay.n_work) * lay.rows_pad * lay.ld_w;
-  const int64_t smem = total * static_cast<int64_t>(sizeof(float));
-  if (smem > kMaxDynamicSmem) return kUnsupportedShape;
+  Program prog{};
+  Layout lay{};
+  lay.rows_pad = (tile_centres * k + kTileRows - 1) / kTileRows * kTileRows;
+  prog.mtiles = lay.rows_pad / kTileRows;
+  if (prog.mtiles > kWarps) return kUnsupported;
+  // shared memory: the weight ring, every layer's bias, then the arena
+  int bias_floats = 0;
+  for (const StackArgs* st : {&enc_st, &emb_st, &att_st})
+    for (int i = 0; i < st->n; ++i) bias_floats += pad8(st->cout[i]);
+  lay.bias = kStages * kSlotFloats;
+  const int base = lay.bias + bias_floats;
+  Arena arena;
+  auto value = [&](int rows, int width) {  // rows x width floats in the arena
+    const int at = arena.alloc(rows * act_ld(width));
+    return PartDesc{at < 0 ? at : base + at, act_ld(width), pad8(width) / 8, 0};
+  };
+  PartDesc enc_part = value(lay.rows_pad, kEnc);
+  PartDesc cf_part = value(tile_centres, cc);
+  const PartDesc gf_part = value(lay.rows_pad, cg);
+  cf_part.group = k;
+  lay.enc = enc_part.off;
+  lay.cfeat = cf_part.off;
+  lay.gfeat = gf_part.off;
+  lay.ld_c = cf_part.ld;
+  lay.ld_g = gf_part.ld;
+  // a layer's output is placed before its inputs are released, so never on them
+  auto layer = [&](const float*& w, const PartDesc* in, int n_in, int cout, PartDesc& o) {
+    o = value(lay.rows_pad, cout);
+    const int used = o.off < 0 ? kUnsupported : add_layer(prog, w, in, n_in, cout, o.off, o.ld);
+    w += used;
+    return used >= 0;
+  };
+
+  // emb = MLP_emb([enc, center_feat, grouped_feat]), or grouped_feat itself;
+  // grouped_feat is read by the first layer only
+  PartDesc emb_part = gf_part;
+  if (n_emb > 0) {
+    const float* w = emb_st.params;
+    PartDesc in[kMaxParts] = {enc_part, cf_part, gf_part};
+    int n_in = 3;
+    for (int i = 0; i < n_emb; ++i) {
+      PartDesc o;
+      if (!layer(w, in, n_in, emb_st.cout[i], o)) return kUnsupported;
+      arena.release(i == 0 ? gf_part.off - base : in[0].off - base);
+      in[0] = o, n_in = 1;
+    }
+    emb_part = in[0];
+  }
+  // e = MLP_enc(enc); the encoding is read by no later layer
+  PartDesc e_part = enc_part;
+  {
+    const float* w = enc_st.params;
+    for (int i = 0; i < n_enc; ++i) {
+      PartDesc o;
+      if (!layer(w, &e_part, 1, enc_st.cout[i], o)) return kUnsupported;
+      arena.release(e_part.off - base);
+      e_part = o;
+    }
+  }
+  // att = MLP_att([e, (center_feat,) emb])
+  {
+    const float* w = att_st.params;
+    PartDesc in[kMaxParts];
+    int n_in = 0;
+    in[n_in++] = e_part;
+    if (att_includes_center) in[n_in++] = cf_part;
+    in[n_in++] = emb_part;
+    for (int i = 0; i < n_att; ++i) {
+      PartDesc o;
+      if (!layer(w, in, n_in, att_st.cout[i], o)) return kUnsupported;
+      arena.release(in[0].off - base);
+      in[0] = o, n_in = 1;
+    }
+    lay.att = in[0].off;
+    lay.att_ld = in[0].ld;
+  }
+  lay.emb = emb_part.off;
+  lay.emb_ld = emb_part.ld;
+  const int64_t smem = (int64_t{base} + arena.top) * static_cast<int64_t>(sizeof(float));
+  const int64_t static_smem = kStages * static_cast<int64_t>(sizeof(uint64_t));
+  if (enc_part.off < 0 || cf_part.off < 0 || gf_part.off < 0 ||
+      smem + static_smem > kMaxDynamicSmem)
+    return kUnsupported;
+
   const int err = allow_dynamic_smem(attentive_aggregate_kernel, static_cast<int>(smem));
   if (err != 0) return err;
-  const int blocks = (centres + lay.tile_centres - 1) / lay.tile_centres;
+  const int blocks = (centres + tile_centres - 1) / tile_centres;
   attentive_aggregate_kernel<<<blocks, kThreads, static_cast<size_t>(smem),
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(center_xyz), static_cast<const float*>(grouped_xyz),
-      static_cast<const float*>(center_feat), static_cast<const float*>(grouped_feat), enc_st,
-      emb_st, att_st, centres, k, cc, cg, att_includes_center, lay, static_cast<float*>(out));
+      prog, static_cast<const float*>(center_xyz), static_cast<const float*>(grouped_xyz),
+      static_cast<const float*>(center_feat), static_cast<const float*>(grouped_feat), centres,
+      k, cc, cg, d, tile_centres, lay, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,14 +56,15 @@ _SIGNATURES = {
     "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P),
     # x, params, centres, k, n_layers, c0..c3, out, stream
     "pwclo_mlp_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att params,
-    # centres, k, cc, cg, then per stack (n, w1, w2, w3) x 3,
-    # att_includes_center, out, stream
-    "pwclo_attentive_aggregate": (_P,) * 7 + (_I,) * 17 + (_P, _P),
+    # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att packed
+    # params, centres, k, cc, cg, then per stack (n, w1, w2, w3) x 3,
+    # att_includes_center, tile_centres, out, stream
+    "pwclo_attentive_aggregate": (_P,) * 7 + (_I,) * 18 + (_P, _P),
 }
 
 # what an entry point returns, beside CUDA's own error codes, for a shape
-# its kernel does not take (kUnsupportedShape in csrc/dense_tile.cuh)
+# its kernel does not take (kUnsupportedShape in csrc/dense_tile.cuh,
+# kUnsupported in csrc/tf32x3.cuh)
 UNSUPPORTED_SHAPE = -1
 
 # launches per kernel since the last reset_launch_counts()

@@ -28,7 +28,18 @@ def fold_bn(kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean:
     return kernel * g[None, :], bias - mean * g
 
 
-def fold_stack(layers: Sequence[Sequence[torch.Tensor]], eps: float = 1e-5) -> tuple:
+class FoldedStack(tuple):
+    """``(weights, biases)`` of a folded stack, as :func:`fold_stack` gives
+    it, with ``derived``: layouts a kernel builds from the stack (keyed by
+    the kernel's own key), kept as long as the stack is."""
+
+    def __new__(cls, weights, biases):
+        stack = super().__new__(cls, (tuple(weights), tuple(biases)))
+        stack.derived = {}
+        return stack
+
+
+def fold_stack(layers: Sequence[Sequence[torch.Tensor]], eps: float = 1e-5) -> FoldedStack:
     """Fold every ``(kernel, scale, bias, mean, var)`` of a stack and return
     ``(weights, biases)`` as views of one packed float32 buffer
     ``W0, b0, W1, b1, …``: the layout the kernels read, so a stack folded
@@ -41,7 +52,7 @@ def fold_stack(layers: Sequence[Sequence[torch.Tensor]], eps: float = 1e-5) -> t
         off += w.numel()
         biases.append(packed[off : off + b.numel()])
         off += b.numel()
-    return tuple(weights), tuple(biases)
+    return FoldedStack(weights, biases)
 
 
 def check_stack(name: str, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],

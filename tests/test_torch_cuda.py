@@ -298,31 +298,59 @@ def test_mlp_maxpool_kernel_matches_plain(cuda_device, full_fp32, rng, b, s, k, 
     torch.testing.assert_close(ops.mlp_maxpool(x, *fold_stack(layers)), out, atol=1e-6, rtol=1e-6)
 
 
+# main-path shapes and widths (as tools/time_point_kernels.py records them),
+# then: odd widths (no multiple of 8: 5, 19, 33, 67) and a ragged last tile,
+# K = 1 and K = 33 (a centre over three row tiles), one to three layers in
+# every stack, a single centre, B = 9, and coordinates at KITTI's reach
+# (|xyz| up to 80 m; ``reach`` 0 keeps the 10 m normal cloud). ``enc`` None
+# is the path's one layer of D.
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,k,cc,cg,emb,att,center", [
-    (1, 256, 32, 64, 64, (128, 64, 64), (128, 64), False),  # level-3 cross
-    (1, 256, 4, 64, 64, None, (128, 64), True),  # level-3 self
-    (1, 1024, 6, 32, 32, (128, 64, 64), (128, 64), False),
-    (1, 2048, 6, 16, 16, (128, 64, 64), (128, 64), False),
-    (1, 2048, 4, 16, 64, None, (128, 64), True),
-    (9, 1024, 4, 32, 64, None, (128, 64), True),
-    (2, 341, 6, 16, 16, (48, 33), (20, 33), False),  # odd widths, ragged last tile
-    (2, 37, 7, 5, 12, None, (12,), True),
-    (1, 9, 40, 8, 8, (16,), (16,), True),  # K above the row target: one centre per block
+@pytest.mark.parametrize("b,s,k,cc,cg,emb,att,center,enc,reach", [
+    (1, 256, 32, 64, 64, (128, 64, 64), (128, 64), False, None, 0),  # level-3 cross
+    (1, 256, 4, 64, 64, None, (128, 64), True, None, 0),  # level-3 self
+    (1, 1024, 6, 32, 32, (128, 64, 64), (128, 64), False, None, 0),
+    (1, 2048, 6, 16, 16, (128, 64, 64), (128, 64), False, None, 0),
+    (1, 2048, 4, 16, 64, None, (128, 64), True, None, 0),
+    (9, 1024, 4, 32, 64, None, (128, 64), True, None, 0),
+    (2, 341, 6, 16, 16, (48, 33), (20, 33), False, None, 0),  # odd widths, ragged last tile
+    (2, 37, 7, 5, 12, None, (12,), True, None, 0),
+    (1, 9, 40, 8, 8, (16,), (16,), True, None, 0),  # K above the row target: one centre per block
+    (1, 256, 6, 64, 64, (128, 64, 64), (128, 64), False, None, 0),  # re-embedding, level 3
+    (1, 1024, 4, 32, 64, None, (128, 64), True, None, 0),
+    (1, 300, 1, 16, 16, (128, 64, 64), (128, 64), False, None, 0),  # K = 1
+    (1, 50, 33, 32, 64, None, (128, 64), True, None, 0),  # K = 33
+    (2, 101, 6, 5, 19, (33, 67), (19, 67), False, (5, 33), 0),  # widths 5, 19, 33, 67
+    (1, 200, 6, 19, 33, (67, 19, 33), (5, 33, 33), False, (19, 67, 33), 0),  # three layers
+    (1, 128, 4, 67, 33, None, (33, 19, 33), True, (5, 19, 67), 0),
+    (1, 1, 6, 16, 16, (128, 64, 64), (128, 64), False, None, 0),  # a single centre
+    (1, 1, 4, 64, 64, None, (128, 64), True, None, 0),
+    (1, 1023, 6, 32, 32, (128, 64, 64), (128, 64), False, None, 0),  # ragged last tile
+    (9, 256, 32, 64, 64, (128, 64, 64), (128, 64), False, None, 0),  # B = 9
+    (9, 256, 4, 64, 64, None, (128, 64), True, None, 0),
+    (1, 2048, 6, 16, 16, (128, 64, 64), (128, 64), False, None, 80.0),  # KITTI's reach
+    (1, 256, 32, 64, 64, (128, 64, 64), (128, 64), False, None, 80.0),
+    (1, 2048, 4, 16, 64, None, (128, 64), True, None, 80.0),
 ])
 def test_attentive_aggregate_kernel_matches_plain(cuda_device, full_fp32, rng, b, s, k, cc, cg,
-                                                  emb, att, center):
-    cxyz = _rand(rng, cuda_device, b, s, 3, scale=10.0)
+                                                  emb, att, center, enc, reach):
+    if reach:
+        direction = rng.normal(size=(b, s, 3))
+        direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+        radius = rng.uniform(2.0, reach, size=(b, s, 1))
+        cxyz = torch.from_numpy((direction * radius).astype(np.float32)).to(cuda_device)
+    else:
+        cxyz = _rand(rng, cuda_device, b, s, 3, scale=10.0)
     gxyz = cxyz[:, :, None, :] + _rand(rng, cuda_device, b, s, k, 3)
     cfeat, gfeat = _rand(rng, cuda_device, b, s, cc), _rand(rng, cuda_device, b, s, k, cg)
     d = emb[-1] if emb else cg
-    enc_wb = _stack(rng, 10, (d,), cuda_device)
+    enc_wb = _stack(rng, 10, enc or (d,), cuda_device)
     emb_wb = _stack(rng, 10 + cc + cg, emb, cuda_device) if emb else None
-    att_wb = _stack(rng, d + (cc if center else 0) + d, att, cuda_device)
+    att_wb = _stack(rng, enc_wb[0][-1].shape[1] + (cc if center else 0) + d, att, cuda_device)
     args = (cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center)
     out = ops.attentive_aggregate(*args)
     torch.cuda.synchronize()
-    # sums of up to 192 products in another order than the library's
+    # 3xTF32 products (about 22 bits of each operand) summed in another
+    # order than the library's fp32 matmul
     torch.testing.assert_close(out, attentive_aggregate_plain(*args), atol=5e-5, rtol=1e-4)
 
 
@@ -360,6 +388,8 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
         ops.mlp_maxpool(torch.rand(1, 2, 4096, 6, device=cuda_device), *wb)
     with pytest.raises(ValueError):  # attention width differs from the embedding's
         ops.attentive_aggregate(*agg[:6], _stack(rng, 18, (5,), cuda_device), True)
+    with pytest.raises(ValueError):  # a layer wider than the kernel's 128 columns
+        ops.attentive_aggregate(*agg[:6], _stack(rng, 18, (130, 6), cuda_device), True)
     with pytest.raises(ValueError):  # parameters left on the CPU
         ops.mlp_maxpool(x, *_stack(rng, 6, (8,), "cpu"))
     assert _cuda.launch_counts() == once

@@ -86,3 +86,39 @@ def test_prepare_matches_reference(sequence_and_reference):
     sparse[::2] = 0.0  # fewer points than requested: padded by resampling
     for scan in (scans[0], sparse):
         np.testing.assert_array_equal(odo._prepare(scan), ref._prepare(scan))
+
+
+# chained pose entries (order 1) after five pairs: a few float32 ulps
+GAP_TOL = 1e-5
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_per_frame_against_batched_gap_is_no_wider_than_the_references(
+        sequence_and_reference, fused):
+    """Pairs fed one at a time (``process_next_frame``) and in one batch
+    (``process_sequence``) sum in other orders, so their poses differ by a
+    little; the port's gap may not exceed the reference's, on the same scans
+    and converted weights, by more than GAP_TOL."""
+    scans, vs, _, _ = sequence_and_reference
+    jcfg = jdo.DeepOdometryConfig(model=JPWCLONetConfig(**SMALL, fused_eval=fused), num_points=256)
+    cfg = DeepOdometryConfig(model=PWCLONetConfig(**SMALL, fused_eval=fused), num_points=256)
+
+    def gap(make):
+        batched, per_frame = make(), make()
+        batched.process_sequence(scans)
+        for scan in scans:
+            per_frame.process_next_frame(scan)
+        return np.abs(batched.absolute_poses() - per_frame.absolute_poses()).max()
+
+    def reference():
+        odo = jdo.PWCLONetOdometry(vs, jcfg)
+        odo.init()
+        return odo
+
+    def port():
+        odo = PWCLONetOdometry(vs, cfg, device="cpu")
+        odo.init()
+        return odo
+
+    ref_gap, port_gap = gap(reference), gap(port)
+    assert port_gap <= ref_gap + GAP_TOL, (port_gap, ref_gap)

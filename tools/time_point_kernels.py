@@ -3,7 +3,8 @@
 every shape the full-width PWCLO-Net gives them, on one CUDA card.
 
     python3 tools/time_point_kernels.py [--root DIR] [--reps N] [--per-frame]
-                                        [--ops fps,knn,gather,scatter_add]
+                                        [--ops fps,knn,gather,scatter_add,
+                                               attentive_aggregate,mlp_maxpool]
 
 ``--root`` is the directory that holds the package (default: this
 repository). To compare two versions of a kernel, unpack the other tree
@@ -30,6 +31,22 @@ buffer is rewritten (``cold_ms``). A profile of that train-mode forward and
 backward gives what the two kernels really take there
 (``train_step_profile``).
 
+The two fused kernels of the eval path (``--ops
+attentive_aggregate,mlp_maxpool``; not in the default set) are timed at the
+calls one full-width fused forward at B=1 makes: the script wraps
+``ops/costvolume.py::_attentive_aggregate_cuda`` and
+``ops/mlp.py::_mlp_maxpool_cuda`` during the forward and keeps, for each
+distinct shape (the widths of every stack included), its launches and the
+first call's real inputs and folded weights. Each shape gets the kernel's
+largest difference from its plain version on the card in full fp32
+(``max_abs_err``, held to atol 5e-5 / rtol 1e-4 for the aggregate and 3e-5 /
+1e-4 for the MLP; the script exits 1 if one is out), warm ``ms``,
+``plain_ms``, and three bounds: fp32 operations on the CUDA cores
+(2 x multiply-adds over 67 TFLOP/s), 3xTF32 on the tensor cores (6 x
+multiply-adds over 495 TFLOP/s) and bytes (inputs, weights and output once,
+over 3.35 TB/s); then the sums weighted by launches, and the two kernels'
+device ms in a profiled fused forward (``fused_forward_profile``).
+
 ``--per-frame`` times the siamese pyramid's FPS and kNN launches as two of
 one frame each (how the network launched them before it stacked both frames
 on the batch axis) and not as one of two frames.
@@ -52,6 +69,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+FP32_FLOPS = 67e12  # H100 SXM, fp32 on the CUDA cores, published
+TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores, published
+FUSED_TOL = {"attentive_aggregate": dict(atol=5e-5, rtol=1e-4),
+             "mlp_maxpool": dict(atol=3e-5, rtol=1e-4)}
 TRAIN_BATCH = 8
 # (S level, N level, k, launches per forward, of the paired pyramid): levels
 # index the pyramid 8192 / 2048 / 1024 / 256 / 64; "b" marks the other frame
@@ -189,10 +210,93 @@ def scatter_row(gather_ops, key: tuple, launches: int, idx: torch.Tensor, reps: 
                 lambda: upd.new_zeros((b * n, c)).index_add_(0, rows, upd2d), reps)}
 
 
-def weighted_sums(rows: list) -> dict:
+def weighted_sums(rows: list, keys=("ms", "cold_ms", "bound_ms", "library_ms")) -> dict:
     return {"launches": sum(r["launches"] for r in rows),
-            **{key: sum(r["launches"] * r[key] for r in rows)
-               for key in ("ms", "cold_ms", "bound_ms", "library_ms")}}
+            **{key: sum(r["launches"] * r[key] for r in rows) for key in keys}}
+
+
+def recorded_fused_calls(cv_mod, mlp_mod, run) -> dict:
+    """``run()`` with the fused kernels' CUDA wrappers of ``cv_mod``
+    (``ops/costvolume.py``) and ``mlp_mod`` (``ops/mlp.py``) wrapped:
+    ``{"attentive_aggregate" | "mlp_maxpool": {shape: [launches, the first
+    call's arguments]}}`` in order of first call; a shape names every width
+    of the call, its stacks' included."""
+    calls = {"attentive_aggregate": {}, "mlp_maxpool": {}}
+    agg_cuda, mlp_cuda = cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda
+
+    def widths(wb):
+        return ",".join(str(w.shape[1]) for w in wb[0])
+
+    def note(kind, key, args):
+        calls[kind].setdefault(key, [0, args])[0] += 1
+
+    def aggregate(cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center):
+        b, s, k, _ = gxyz.shape
+        key = (f"{'self' if center else 'cross'} B={b} S={s} K={k} Cc={cfeat.shape[-1]} "
+               f"Cg={gfeat.shape[-1]} enc({widths(enc_wb)}) "
+               f"emb({'' if emb_wb is None else widths(emb_wb)}) att({widths(att_wb)})")
+        note("attentive_aggregate", key, (cxyz.clone(), gxyz.clone(), cfeat.clone(),
+                                          gfeat.clone(), enc_wb, emb_wb, att_wb, center))
+        return agg_cuda(cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center)
+
+    def mlp(x, weights, biases):
+        b, s, k, cin = x.shape
+        key = f"B={b} S={s} K={k} Cin={cin} ({widths((weights,))})"
+        note("mlp_maxpool", key, (x.clone(), weights, biases))
+        return mlp_cuda(x, weights, biases)
+
+    cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda = aggregate, mlp
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda = agg_cuda, mlp_cuda
+    return calls
+
+
+def fused_row(kind: str, kernel, plain, key: str, launches: int, args: tuple, reps: int) -> dict:
+    """One recorded shape of a fused kernel: error against the plain version,
+    warm device times and the three bounds."""
+    out, ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    if kind == "attentive_aggregate":
+        cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, _ = args
+        stacks = [wb for wb in (enc_wb, emb_wb, att_wb) if wb is not None]
+        rows, inputs = gxyz.shape[0] * gxyz.shape[1] * gxyz.shape[2], (cxyz, gxyz, cfeat, gfeat)
+    else:
+        x, weights, biases = args
+        stacks = [(weights, biases)]
+        rows, inputs = x.shape[0] * x.shape[1] * x.shape[2], (x,)
+    macs = rows * sum(w.shape[0] * w.shape[1] for wb in stacks for w in wb[0])
+    nbytes = 4 * (sum(t.numel() for t in inputs) + out.numel()
+                  + sum(t.numel() for wb in stacks for part in wb for t in part))
+    return {"shape": key, "launches": launches, "max_abs_err": (out - ref).abs().max().item(),
+            "within_tolerance": torch.allclose(out, ref, **FUSED_TOL[kind]),
+            "ms": device_ms(lambda: kernel(*args), reps),
+            "plain_ms": device_ms(lambda: plain(*args), reps),
+            "bound_fp32_ms": 2.0 * macs / FP32_FLOPS * 1e3,
+            "bound_tf32x3_ms": 6.0 * macs / TF32_FLOPS * 1e3,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def fused_profile(run) -> dict:
+    """Device ms of the two fused kernels in ``run()`` (one fused forward),
+    from the profiler, beside the device time of everything."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # keep the second: the first can lose early device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"device_ms": sum(e.time_range.end - e.time_range.start for e in device) / 1e3,
+           "device_launches": len(device)}
+    for key in ("attentive_aggregate", "mlp_maxpool"):
+        picked = [e for e in device if key in e.name]
+        out[f"{key}_ms"] = sum(e.time_range.end - e.time_range.start for e in picked) / 1e3
+        out[f"{key}_device_launches"] = len(picked)
+    return out
 
 
 def main() -> int:
@@ -202,7 +306,8 @@ def main() -> int:
     parser.add_argument("--per-frame", action="store_true",
                         help="the pyramid's launches as two of one frame, not one of two")
     parser.add_argument("--ops", default="fps,knn,gather,scatter_add",
-                        help="comma-separated subset of fps, knn, gather, scatter_add")
+                        help="comma-separated subset of fps, knn, gather, scatter_add, "
+                             "attentive_aggregate, mlp_maxpool")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -216,7 +321,9 @@ def main() -> int:
         generate_sequence,
     )
     from pwclonet_pylidarslam_torch.models import PWCLONetConfig
+    from pwclonet_pylidarslam_torch.ops import costvolume as cv_mod
     from pwclonet_pylidarslam_torch.ops import gather as gather_mod
+    from pwclonet_pylidarslam_torch.ops import mlp as mlp_mod
     from pwclonet_pylidarslam_torch.slam.deep_odometry import DeepOdometryConfig, PWCLONetOdometry
     from pwclonet_pylidarslam_torch.train import state as tstate
 
@@ -263,6 +370,27 @@ def main() -> int:
                 gather_mod, (2 * TRAIN_BATCH, 2048, 32768, 19), 0,
                 torch.from_numpy(idx.astype(np.int32)).cuda(), args.reps, flush)
 
+    fused = [kind for kind in ("attentive_aggregate", "mlp_maxpool") if kind in wanted]
+    if fused:
+        torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
+
+        def fused_forward():
+            with torch.inference_mode():
+                odo.model(both[1:2], both[0:1])
+
+        fused_forward()  # folds (and lays out) the weights once, as a running odometry has
+        calls = recorded_fused_calls(cv_mod, mlp_mod, fused_forward)
+        out["fused_forward_profile"] = fused_profile(fused_forward)
+        kernels = {"attentive_aggregate": (cv_mod._attentive_aggregate_cuda,
+                                           cv_mod.attentive_aggregate_plain),
+                   "mlp_maxpool": (mlp_mod._mlp_maxpool_cuda, mlp_mod.mlp_maxpool_plain)}
+        with torch.inference_mode():
+            for kind in fused:
+                out[kind] = [fused_row(kind, *kernels[kind], key, launches, call, args.reps)
+                             for key, (launches, call) in calls[kind].items()]
+                out[f"{kind}_sums"] = weighted_sums(out[kind], (
+                    "ms", "plain_ms", "bound_fp32_ms", "bound_tf32x3_ms", "bound_bytes_ms"))
+
     levels = [both]
     for npoint in (2048, 1024, 256, 64):
         idx = ops.furthest_point_sample(levels[-1], npoint)
@@ -305,7 +433,10 @@ def main() -> int:
     unequal = [r["shape"] for r in rows if not r["bit_equal"]]
     if unequal:
         print(f"not equal to the plain version to the bit: {unequal}", file=sys.stderr)
-    return 1 if unequal else 0
+    outside = [r["shape"] for kind in fused for r in out[kind] if not r["within_tolerance"]]
+    if outside:
+        print(f"outside the tolerance of the plain version: {outside}", file=sys.stderr)
+    return 1 if unequal or outside else 0
 
 
 if __name__ == "__main__":
