@@ -19,9 +19,10 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    at every cluster size and thread count and kNN at 2, 4 and 8 queries a
    block give the same results and are timed; the fused MLP + max-pool
    within atol 3e-5 / rtol 1e-4 and the fused attentive aggregate within
-   atol 5e-5 / rtol 1e-4 (both sum in another order than the library's
-   matmul; the aggregate multiplies in 3xTF32 on the tensor cores), also at
-   KITTI's reach of 80 m, on weights folded from perturbed BatchNorm statistics; the
+   atol 5e-5 / rtol 1e-4 (both multiply in 3xTF32 on the tensor cores and
+   sum in another order than the library's matmul), also at KITTI's reach of
+   80 m, on weights folded from perturbed BatchNorm statistics; the MLP at
+   every path shape with other tiles than its wrapper's (bit-equal, timed); the
    scatter-add (the gather's backward) at shapes of a train step's backward
    (three batch-8 ones, and the B=16 level-2 grouping of the stacked
    pyramid): ``torch.equal`` to the plain version on the CPU copy of its
@@ -62,9 +63,10 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    ``process_sequence``, and each kernel beside its plain version, one
    PyTorch library call where one computes the same function, and its bound
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM's
-   published peaks; for the aggregate, which multiplies in 3xTF32, three
-   TF32 products for each over 495 TFLOP/s, its fp32 bound beside). A kernel's ``ms`` is the device's time per call, taken
-   with the calls queued behind a sleeping kernel; ``call_ms`` is the time
+   published peaks; for the two fused kernels, which multiply in 3xTF32,
+   three TF32 products for each over 495 TFLOP/s, their fp32 bound beside).
+   A kernel's ``ms`` is the device's time per call, taken with the calls
+   queued behind a sleeping kernel; ``call_ms`` is the time
    per call when Python launches them one after another. FPS also gets
    ``chain_bound_ms``: the time of its chain of ``npoint - 1`` dependent
    steps when each does only its key reduction and its wait, measured with
@@ -72,7 +74,8 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
 
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
-thread count, the kNN kernel's at each number of queries a block), a
+thread count, the kNN kernel's at each number of queries a block, the MLP
+kernel's at each tile), a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if CUDA is unavailable or any check
 fails. ``--profile`` profiles one full-width forward of each configuration
@@ -118,7 +121,9 @@ from pwclonet_pylidarslam_torch.ops.knn import (  # noqa: E402
     knn_plain,
     pairwise_sqdist,
 )
+from pwclonet_pylidarslam_torch.ops import mlp as mlp_mod  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain  # noqa: E402
+from pwclonet_pylidarslam_torch.ops.tf32x3 import max_tile_rows, mlp_tile, sm_count  # noqa: E402
 from pwclonet_pylidarslam_torch.models.layers import discard_batch_stats  # noqa: E402
 from pwclonet_pylidarslam_torch.models.pwclonet import PoseCalculator  # noqa: E402
 from pwclonet_pylidarslam_torch.slam.deep_odometry import (  # noqa: E402
@@ -155,6 +160,19 @@ LAUNCHES_PER_FORWARD = {
 # scatter-add in the backward.
 LAUNCHES_PER_TRAIN_STEP = {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 18,
                            "mlp_maxpool": 0, "attentive_aggregate": 0}
+# (S, K, Cin, widths) of the fused MLP's calls in a full-width fused forward
+# at B=1, as tools/time_point_kernels.py records them; the one with the most
+# work first
+MLP_PATH_SHAPES = [
+    (2048, 8, 67, (128, 64)),  # level-1 SetUpConv
+    (2048, 32, 6, (8, 8, 16)),  # level-1 SetConv
+    (1024, 32, 19, (16, 16, 32)),
+    (256, 16, 35, (32, 32, 64)),
+    (64, 16, 67, (64, 64, 128)),
+    (64, 16, 67, (128, 64, 64)),  # SetConv on the flow embedding
+    (1024, 8, 67, (128, 64)),
+    (256, 8, 67, (128, 64)),
+]
 KERNELS = {
     "fps": ("pwclonet_pylidarslam_torch/csrc/fps.cu",
             "pwclonet_pylidarslam_tpu/ops/pallas/fps_kernel.py:116"),
@@ -444,24 +462,74 @@ def stack_bytes(wb: tuple) -> int:
     return sum(4 * t.numel() for part in wb for t in part)
 
 
-def mlp_case(gen: torch.Generator, s: int, k: int, cin: int, widths: tuple) -> dict:
-    x = torch.randn(1, s, k, cin, generator=gen).cuda()
+def mlp_input(gen: torch.Generator, s: int, k: int, cin: int, reach: float = 0.0) -> torch.Tensor:
+    """``(1, s, k, cin)`` normal, or with ``reach`` the first pyramid level's
+    input at KITTI scale: ``[q - p, q]`` (``models/pointnet2.py``) with
+    centres ``p`` uniform in direction at 2 m to ``reach`` m and neighbours
+    ``q`` within about a metre."""
+    if not reach:
+        return torch.randn(1, s, k, cin, generator=gen).cuda()
+    direction = torch.nn.functional.normalize(torch.randn(1, s, 1, 3, generator=gen), dim=-1)
+    p = direction * (2.0 + (reach - 2.0) * torch.rand(1, s, 1, 1, generator=gen))
+    q = p + 0.5 * torch.randn(1, s, k, 3, generator=gen)
+    return torch.cat([q - p, q], dim=-1).cuda()
+
+
+def mlp_case(gen: torch.Generator, s: int, k: int, cin: int, widths: tuple,
+             reach: float = 0.0) -> dict:
+    """The kernel multiplies in 3xTF32 on the tensor cores (three TF32
+    products for each fp32 one): ``bound_ms`` counts those at 495 TFLOP/s,
+    ``bound_fp32_ms`` the products in fp32 on the CUDA cores at 67."""
+    x = mlp_input(gen, s, k, cin, reach)
     wb = folded_stack(gen, cin, widths)
-    out = ops.mlp_maxpool(x, *wb)
-    ref = mlp_maxpool_plain(x, *wb)
+    out = ops.mlp_maxpool(x, wb)
+    ref = mlp_maxpool_plain(x, wb)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    name = f"({s},{k},{cin})->{widths}".replace(" ", "")
+    name = f"({s},{k},{cin})->{widths}".replace(" ", "") + (f" at {reach:g} m" if reach else "")
     check(torch.allclose(out, ref, atol=3e-5, rtol=1e-4),
           f"mlp_maxpool {name}: within atol 3e-5 rtol 1e-4 of plain (max {err:.3g})")
     nbytes = 4 * x.numel() + stack_bytes(wb) + 4 * out.numel()
-    bnd, by = bound_ms(nbytes, 2.0 * s * k * stack_macs(cin, wb))
+    macs = s * k * stack_macs(cin, wb)
+    bnd, by = bound_ms(nbytes, 6.0 * macs, TF32_FLOPS)
     return {
         "shape": name, "max_abs_err": err,
-        "bound_ms": bnd, "bound_by": by,
-        **kernel_times(lambda: ops.mlp_maxpool(x, *wb), lambda: mlp_maxpool_plain(x, *wb),
+        "bound_ms": bnd, "bound_by": by, "bound_fp32_ms": bound_ms(nbytes, 2.0 * macs)[0],
+        **kernel_times(lambda: ops.mlp_maxpool(x, wb), lambda: mlp_maxpool_plain(x, wb),
                        None, 50, 20),
     }
+
+
+def mlp_variants(gen: torch.Generator) -> list:
+    """The MLP kernel at every path shape with other tiles than the wrapper's
+    (``ops/tf32x3.py::mlp_tile``): 16 to 128 rows at once (as the widest
+    layer allows; the fewest whole centres that fill them), and blocks that
+    walk 2 or 4 such tiles; each ``torch.equal`` to the wrapper's choice (a
+    row's products do not depend on the tile) and timed. The first entry of
+    each shape is the wrapper's own choice."""
+    rows_out = []
+    for s, k, cin, widths in MLP_PATH_SHAPES:
+        x = torch.randn(1, s, k, cin, generator=gen).cuda()
+        wb = folded_stack(gen, cin, widths)
+        ref = ops.mlp_maxpool(x, wb)
+        own = mlp_tile(s, k, max(widths), sm_count(x.device))
+        name = f"({s},{k},{cin})->{widths}".replace(" ", "")
+        rows = [{"block_centres": own[0], "tile_rows": own[1], "own": True,
+                 **device_ms(lambda: ops.mlp_maxpool(x, wb), 50)}]
+        limit = max_tile_rows(max(widths))
+        for tile_rows in (16, 32, 64, 128):
+            if tile_rows > limit or (k > tile_rows and tile_rows < limit):
+                continue  # too wide, or a centre split where a longer tile would hold more
+            for walk in (1, 2, 4):
+                tile = (max(1, tile_rows // k) * walk, tile_rows)
+                if tile == own:
+                    continue
+                run = functools.partial(mlp_mod._mlp_maxpool_cuda, x, wb, tile=tile)
+                check(torch.equal(run(), ref), f"mlp_maxpool {name} tile={tile}: same result")
+                rows.append({"block_centres": tile[0], "tile_rows": tile[1], "own": False,
+                             **device_ms(run, 50)})
+        rows_out += [{"shape": name, **r} for r in rows]
+    return rows_out
 
 
 def aggregate_case(gen: torch.Generator, s: int, k: int, cc: int, cg: int, cross: bool,
@@ -513,16 +581,8 @@ def fused_kernel_cases() -> dict:
     aggregate's widest at KITTI's reach; no single PyTorch call computes
     either, so no library time."""
     gen = torch.Generator().manual_seed(0)
-    mlp = [
-        mlp_case(gen, 2048, 8, 67, (128, 64)),  # level-1 SetUpConv: the most work
-        mlp_case(gen, 2048, 32, 6, (8, 8, 16)),  # level-1 SetConv
-        mlp_case(gen, 1024, 32, 19, (16, 16, 32)),
-        mlp_case(gen, 256, 16, 35, (32, 32, 64)),
-        mlp_case(gen, 64, 16, 67, (64, 64, 128)),
-        mlp_case(gen, 64, 16, 67, (128, 64, 64)),  # SetConv on the flow embedding
-        mlp_case(gen, 1024, 8, 67, (128, 64)),
-        mlp_case(gen, 256, 8, 67, (128, 64)),
-    ]
+    mlp = [mlp_case(gen, *shape) for shape in MLP_PATH_SHAPES]
+    mlp.append(mlp_case(gen, 2048, 32, 6, (8, 8, 16), reach=80.0))  # level 1 at KITTI's reach
     aggregate = [
         aggregate_case(gen, 256, 32, 64, 64, cross=True),  # level-3 cost volume
         aggregate_case(gen, 256, 4, 64, 64, cross=False),
@@ -582,6 +642,7 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) 
         "fps": (fps_variants(l0, 2048) + fps_variants(l1, 1024) + fps_variants(l2, 256)
                 + fps_variants(l3, 64)),
         "knn": knn_variants(l1, l0, 32) + knn_variants(l2, l1, 32) + knn_variants(l1, l1b, 6),
+        "mlp_maxpool": mlp_variants(torch.Generator().manual_seed(1)),
     }
     # the level-1 index at B=1 first (the kernels line's head, as in earlier
     # versions of this script), then the train step's widest groupings
@@ -989,7 +1050,7 @@ def main() -> int:
                         help="profile one full-width forward of each configuration")
     parser.add_argument("--kernels", action="store_true",
                         help="stop after phase 2: build, each kernel against its plain version, "
-                             "and the FPS and kNN launch variants; prints no ok line")
+                             "and the FPS, kNN and MLP launch variants; prints no ok line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is false: this script needs a CUDA card")

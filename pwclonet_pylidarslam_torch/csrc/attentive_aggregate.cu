@@ -66,34 +66,6 @@ struct Layout {  // offsets in floats into dynamic shared memory
   int rows_pad;
 };
 
-// dst[r * ld + j] = src[r * width + j] for r < rows, j < width, by cp.async;
-// 0 for width <= j < pad8(width) and for rows <= r < rows_pad
-__device__ inline void stage_rows(float* dst, int ld, const float* src, int width, int rows,
-                                  int rows_pad) {
-  const int padded = pad8(width);
-  if (width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    const int chunks = width / 4;
-    for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-      const int r = i / chunks, j = (i - r * chunks) * 4;
-      cp_async16(dst + r * ld + j, src + static_cast<size_t>(r) * width + j);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * width; i += kThreads) {
-      const int r = i / width, j = i - r * width;
-      cp_async4(dst + r * ld + j, src + static_cast<size_t>(r) * width + j);
-    }
-  }
-  const int tail = padded - width;
-  for (int i = threadIdx.x; i < rows * tail; i += kThreads) {
-    const int r = i / tail;
-    dst[r * ld + width + (i - r * tail)] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < (rows_pad - rows) * padded; i += kThreads) {
-    const int r = i / padded;
-    dst[(rows + r) * ld + (i - r * padded)] = 0.0f;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 attentive_aggregate_kernel(const __grid_constant__ Program prog,
                            const float* __restrict__ cxyz, const float* __restrict__ gxyz,
@@ -182,7 +154,7 @@ struct StackArgs {
 
 // center_xyz (centres, 3), grouped_xyz (centres, K, 3), center_feat (centres, cc),
 // grouped_feat (centres, K, cg), out (centres, D), all f32. Each stack's
-// params are its layers packed by ops/costvolume.py::pack_fragments, the first
+// params are its layers packed by ops/tf32x3.py::pack_fragments, the first
 // layer's rows padded part by part: enc [10]; emb [10, cc, cg]; att
 // [enc_out, (cc,) D], with D = emb_out, or cg where n_emb = 0 (grouped_feat
 // is the embedding). A block takes tile_centres centres (K x tile_centres

@@ -56,7 +56,7 @@ constexpr int kScanThreads = 1024;
 constexpr int kSumThreads = 512;  // (row, channel) pairs a sum block aims at
 constexpr int kAhead = 8;         // update loads in flight per thread
 constexpr int kMaxGridY = 65535;
-constexpr int kUnsupportedShape = -1;  // as in dense_tile.cuh
+constexpr int kUnsupportedShape = -1;  // as kUnsupported in tf32x3.cuh
 
 // counts: shared, [kWarps][rows of the pass]
 __global__ void __launch_bounds__(kThreads)

@@ -14,7 +14,7 @@
 //
 // Weights: the wrapper pads every layer to K and N multiples of 8 (zero rows
 // and columns; an input made of several parts is padded part by part) and
-// lays it out in fragment order (ops/costvolume.py::pack_fragments):
+// lays it out in fragment order (ops/tf32x3.py::pack_fragments):
 //   for k-step s (8 rows), n-tile j (8 columns), lane (g = lane / 4, t = lane % 4):
 //     float2 {w[8s+t][8j+g], w[8s+t+4][8j+g]}
 // then the bias, padded to N. A lane reads its B fragment as one 8-byte
@@ -48,6 +48,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace pwclo_tc {
@@ -164,6 +165,18 @@ inline int add_layer(Program& p, const float* w, const PartDesc* parts, int n_pa
   p.bias_floats += np;
   ++p.n_layers;
   return layer_floats(8 * ksteps, np);
+}
+
+// Host: the most n-tiles a warp takes in any layer of the program: what
+// run_program's TILES must reach (rounded up to a power of two).
+inline int max_warp_ntiles(const Program& p) {
+  const int shares = kWarps / p.mtiles;
+  int most = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const int per = (p.layer[l].ntiles + shares - 1) / shares;
+    most = per > most ? per : most;
+  }
+  return most;
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
@@ -290,9 +303,13 @@ __device__ __forceinline__ void load_slab(const Program& p, SlabCursor& c, int s
 // Every layer's bias into shared memory (bias + L.bias_off; per-thread
 // cp.async, joining the copies of the caller's inputs: run_program waits
 // for them all) and the first kStages - 1 slabs in flight. After init_ring
-// and a barrier. Returns the cursor run_program continues from.
+// (only thread 0, which set up the ring, touches its barriers here; the
+// barrier that shows the set-up to the other threads may follow). s0: the
+// ring's slab count so far, 0 in a block's first program and what the last
+// run_program returned in a later one (the slots' barriers go on counting
+// phases). Returns the cursor run_program continues from.
 __device__ __forceinline__ SlabCursor prefetch_program(const Program& p, const Ring& r,
-                                                       float* bias) {
+                                                       float* bias, int s0 = 0) {
   for (int l = 0; l < p.n_layers; ++l) {
     const LayerDesc& L = p.layer[l];
     for (int i = threadIdx.x * 4; i < 8 * L.ntiles; i += kThreads * 4)
@@ -300,8 +317,37 @@ __device__ __forceinline__ SlabCursor prefetch_program(const Program& p, const R
   }
   SlabCursor c;
   cursor_at(p, c, 0);
-  for (int s = 0; s < kStages - 1; ++s) load_slab(p, c, s, r);
+  for (int s = s0; s < s0 + kStages - 1; ++s) load_slab(p, c, s, r);
   return c;
+}
+
+// dst[r * ld + j] = src[r * width + j] for r < rows, j < width, by cp.async
+// (16 bytes at a time where rows allow; run_program waits for them); 0 for
+// width <= j < pad8(width) and for rows <= r < rows_pad
+__device__ inline void stage_rows(float* dst, int ld, const float* src, int width, int rows,
+                                  int rows_pad) {
+  const int padded = pad8(width);
+  if (width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const int chunks = width / 4;
+    for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+      const int r = i / chunks, j = (i - r * chunks) * 4;
+      cp_async16(dst + r * ld + j, src + static_cast<size_t>(r) * width + j);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * width; i += kThreads) {
+      const int r = i / width, j = i - r * width;
+      cp_async4(dst + r * ld + j, src + static_cast<size_t>(r) * width + j);
+    }
+  }
+  const int tail = padded - width;
+  for (int i = threadIdx.x; i < rows * tail; i += kThreads) {
+    const int r = i / tail;
+    dst[r * ld + width + (i - r * tail)] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < (rows_pad - rows) * padded; i += kThreads) {
+    const int r = i / padded;
+    dst[(rows + r) * ld + (i - r * padded)] = 0.0f;
+  }
 }
 
 __device__ __forceinline__ const float* part_row(const float* smem, const PartDesc& part, int row,
@@ -323,11 +369,11 @@ struct APos {
 // k-step: the A fragment split once, the B fragments loaded and split, then
 // each of the three products over all CNT tiles before the next (dependent
 // mma CNT apart), then the k-step's sums added to the accumulators.
-template <int CNT>
+template <int CNT, int TILES>
 __device__ __forceinline__ void slab_ksteps(const float2* wf, int n_ks, int ntiles, int t,
                                             APos& a, const LayerDesc& L, const float* smem,
                                             int row_lo, int row_hi, int group_last,
-                                            float (&acc)[kMaxWarpNTiles][4]) {
+                                            float (&acc)[TILES][4]) {
   for (int ks = 0; ks < n_ks; ++ks, wf += ntiles * 32) {
     float2 w[CNT];
 #pragma unroll
@@ -365,19 +411,25 @@ __device__ __forceinline__ void slab_ksteps(const float2* wf, int n_ks, int ntil
 }
 
 // Run every layer of the program over the block's mtiles x 16 rows, after
-// prefetch_program (whose cursor it takes). The inputs must be in shared
-// memory by the first slab's wait and barrier; a layer's output must not be
-// one of its inputs. Rows of a part with group > 0 are clamped to
-// group_last. Ends with a barrier, the last output visible to every thread.
-__device__ __forceinline__ void run_program(const Program& p, SlabCursor next, float* smem,
-                                           const Ring& ring, const float* bias, int group_last) {
+// prefetch_program (whose cursor and s0 it takes). The inputs must be in
+// shared memory by the first slab's wait and barrier; a layer's output must
+// not be one of its inputs. Rows of a part with group > 0 are clamped to
+// group_last. Ends with a barrier, the last output visible to every thread
+// and every ring slot free; returns the slab count, the s0 of the block's
+// next program. TILES: the most n-tiles a warp takes in any layer of the
+// program (a power of two; the host checks it), which sets the registers
+// the accumulators take: a narrow program fits more blocks an SM.
+template <int TILES = kMaxWarpNTiles>
+__device__ __forceinline__ int run_program(const Program& p, SlabCursor next, float* smem,
+                                          const Ring& ring, const float* bias, int group_last,
+                                          int s0 = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int shares = kWarps / p.mtiles;
   const int wm = warp % p.mtiles, wn = warp / p.mtiles;
   const int row_lo = wm * kTileRows + g, row_hi = row_lo + 8;
   cp_async_wait_all();  // this thread's copies of the inputs and biases
-  int s = 0;
+  int s = s0;
   for (int l = 0; l < p.n_layers; ++l) {
     const LayerDesc& L = p.layer[l];
     const int ntiles = L.ntiles, ksps = L.ksteps_per_slab, ksteps = L.ksteps;
@@ -385,7 +437,7 @@ __device__ __forceinline__ void run_program(const Program& p, SlabCursor next, f
     const int nt0 = wn * per;
     const int cnt = wn < shares ? max(0, min(per, ntiles - nt0)) : 0;
     const int cnt_pow2 = cnt > 4 ? 8 : cnt > 2 ? 4 : cnt;
-    float acc[kMaxWarpNTiles][4];
+    float acc[TILES][4];
     APos a{part_row(smem, L.part[0], row_lo, group_last),
            part_row(smem, L.part[0], row_hi, group_last), 0, 0, L.part[0].ksteps};
     for (int j = 0; j < L.slabs; ++j, ++s) {
@@ -394,7 +446,7 @@ __device__ __forceinline__ void run_program(const Program& p, SlabCursor next, f
       load_slab(p, next, s + kStages - 1, ring);
       if (j == 0) {
 #pragma unroll
-        for (int q = 0; q < kMaxWarpNTiles; ++q) {
+        for (int q = 0; q < TILES; ++q) {
           float b0 = 0.0f, b1 = 0.0f;
           if (q < cnt) {
             const float* b = bias + L.bias_off + (nt0 + q) * 8 + 2 * t;
@@ -409,13 +461,16 @@ __device__ __forceinline__ void run_program(const Program& p, SlabCursor next, f
       const int n_ks = min(ksps, ksteps - j * ksps);
       switch (cnt_pow2) {
         case 8:
-          slab_ksteps<8>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
+          if constexpr (TILES >= 8)
+            slab_ksteps<8>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
           break;
         case 4:
-          slab_ksteps<4>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
+          if constexpr (TILES >= 4)
+            slab_ksteps<4>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
           break;
         case 2:
-          slab_ksteps<2>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
+          if constexpr (TILES >= 2)
+            slab_ksteps<2>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
           break;
         case 1:
           slab_ksteps<1>(wf, n_ks, ntiles, t, a, L, smem, row_lo, row_hi, group_last, acc);
@@ -426,7 +481,7 @@ __device__ __forceinline__ void run_program(const Program& p, SlabCursor next, f
     }
     float* out = smem + L.out;
 #pragma unroll
-    for (int q = 0; q < kMaxWarpNTiles; ++q) {
+    for (int q = 0; q < TILES; ++q) {
       if (q < cnt) {
         const int col = (nt0 + q) * 8 + 2 * t;
         *reinterpret_cast<float2*>(out + row_lo * L.out_ld + col) =
@@ -437,6 +492,7 @@ __device__ __forceinline__ void run_program(const Program& p, SlabCursor next, f
     }
   }
   __syncthreads();
+  return s;
 }
 
 // Ask for `bytes` of dynamic shared memory for `kernel`; a CUDA error code.

@@ -89,7 +89,7 @@ class PointMLP(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, bn_momentum=0.1,
                 maxpool: bool = False, fused: bool = False) -> torch.Tensor:
         if fused and maxpool and not train and x.dim() == 4:
-            return ops.mlp_maxpool(x.float(), *self.folded())
+            return ops.mlp_maxpool(x.float(), self.folded())
         for i, (kernel, scale, bias, mean, var) in enumerate(self._layers()):
             if self.dtype is not None:
                 h = torch.matmul(x.to(self.dtype), kernel.to(self.dtype)).float()

@@ -54,8 +54,8 @@ _SIGNATURES = {
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
     # updates, idx, b, n, m, c, tile, scratch, scratch ints, out, stream
     "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P),
-    # x, params, centres, k, n_layers, c0..c3, out, stream
-    "pwclo_mlp_maxpool": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # x, params, centres, k, n_layers, c0..c3, block_centres, tile_rows, out, stream
+    "pwclo_mlp_maxpool": (_P, _P) + (_I,) * 9 + (_P, _P),
     # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att packed
     # params, centres, k, cc, cg, then per stack (n, w1, w2, w3) x 3,
     # att_includes_center, tile_centres, out, stream
@@ -63,8 +63,8 @@ _SIGNATURES = {
 }
 
 # what an entry point returns, beside CUDA's own error codes, for a shape
-# its kernel does not take (kUnsupportedShape in csrc/dense_tile.cuh,
-# kUnsupported in csrc/tf32x3.cuh)
+# its kernel does not take (kUnsupported in csrc/tf32x3.cuh,
+# kUnsupportedShape in csrc/scatter_add.cu)
 UNSUPPORTED_SHAPE = -1
 
 # launches per kernel since the last reset_launch_counts()
@@ -164,8 +164,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         err = fn(*args)
     if err == UNSUPPORTED_SHAPE:
         raise ValueError(f"{entry}: the kernel does not take this shape (layer counts, widths "
-                         "that do not chain, a tile of K rows too large for shared memory, or "
-                         "a tile or scratch size it does not take)")
+                         "that do not chain or exceed 128 columns, a tile too large for shared "
+                         "memory, or a tile or scratch size it does not take)")
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1

@@ -15,93 +15,21 @@ only ``(B, S, D)``; on CPU tensors it runs :func:`attentive_aggregate_plain`.
 The kernel multiplies on the tensor cores in 3xTF32 (every operand split
 into two TF32 parts, three TF32 products a product) and sums in another
 order: the two agree within atol 5e-5, rtol 1e-4. It reads each stack in the
-layout :func:`pack_fragments` makes, built once per stack that
+layout ``ops/tf32x3.py::pack_fragments`` makes, built once per stack that
 ``PointMLP.folded()`` gives and kept with it.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional
 
 import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops.mlp import MAX_LAYERS, check_stack
+from pwclonet_pylidarslam_torch.ops.tf32x3 import Stack, packed_fragments, sm_count, tile_centres
 
-Stack = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]  # (weights, biases), folded
 ENC_WIDTH = 10
-TILE_ROWS = 16  # rows of one tensor-core tile (mma M)
-MAX_BLOCK_ROWS = 64  # rows a block takes where the call has them (csrc/attentive_aggregate.cu)
-
-
-def pad8(n: int) -> int:
-    return -(-n // 8) * 8
-
-
-def pack_fragments(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-                   parts: Sequence[int]) -> torch.Tensor:
-    """A folded stack in the layout ``csrc/tf32x3.cuh`` reads, one float32
-    buffer on the weights' device. Layer by layer: the weight padded with
-    zeros to ``(Kp, Np)``, both multiples of 8 (the first layer's rows part
-    by part, ``parts`` the widths of its concatenated input; later layers
-    have one part) and laid out in mma fragment order: for k-step ``s``,
-    n-tile ``j`` and lane ``(g, t)`` = ``(lane // 4, lane % 4)`` the two
-    floats ``w[8s+t, 8j+g], w[8s+t+4, 8j+g]``; then the bias, padded to
-    ``Np``. The kernel splits each weight into its TF32 parts itself."""
-    out = []
-    for w, b in zip(weights, biases):
-        cin, cout = w.shape
-        if sum(parts) != cin:
-            raise ValueError(f"parts {tuple(parts)} do not sum to the weight's {cin} rows")
-        kp, np_ = sum(pad8(p) for p in parts), pad8(cout)
-        full = w.new_zeros(kp, np_)
-        src = dst = 0
-        for p in parts:
-            full[dst:dst + p, :cout] = w[src:src + p]
-            src, dst = src + p, dst + pad8(p)
-        # row 8s + 4h + t, column 8j + g  ->  (s, j, g, t, h)
-        frags = full.view(kp // 8, 2, 4, np_ // 8, 8).permute(0, 3, 4, 2, 1)
-        out += [frags.reshape(-1), torch.nn.functional.pad(b, (0, np_ - cout))]
-        parts = (cout,)
-    return torch.cat(out)
-
-
-def _packed(wb: Stack, parts: Sequence[int], device: torch.device) -> torch.Tensor:
-    """:func:`pack_fragments` of ``wb``, kept in the stack's ``derived`` where
-    it has one (a ``FoldedStack``: ``PointMLP.folded()``), so a model's
-    stacks are laid out once and not on every call."""
-    for t in (*wb[0], *wb[1]):
-        if t.device != device:
-            raise ValueError(f"parameters must lie on {device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"parameters must be float32, got {t.dtype}")
-    derived = getattr(wb, "derived", None)
-    key = ("fragments", tuple(parts))
-    if derived is not None and key in derived:
-        return derived[key]
-    packed = pack_fragments(wb[0], wb[1], parts)
-    if derived is not None:
-        derived[key] = packed
-    return packed
-
-
-def tile_centres(centres: int, k: int, sms: int) -> int:
-    """Whole centres a block takes: a tile of 16, 32 or 64 rows, the largest
-    whose blocks still number at least half the ``sms`` SMs; at least one
-    centre. Every block streams every layer's weights from L2, so a wider
-    tile costs less a row; two blocks share an SM. On the path's shapes this
-    beat both the largest tile that gives every SM a block and the one that
-    gives every SM two (PERF.md, PR 7)."""
-    rows = TILE_ROWS
-    while rows * 2 <= MAX_BLOCK_ROWS and rows * sms <= centres * k:
-        rows *= 2
-    return max(1, rows // k)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _mlp(h: torch.Tensor, wb: Stack) -> torch.Tensor:
@@ -152,17 +80,16 @@ def _attentive_aggregate_cuda(center_xyz, grouped_xyz, center_feat, grouped_feat
     att_widths = check_stack("att_wb", *att_wb, att_in)
     if att_widths[-1] != d:
         raise ValueError(f"attention width {att_widths[-1]} must equal the embedding width {d}")
-    enc_p = _packed(enc_wb, (ENC_WIDTH,), device)
-    emb_p = None if emb_wb is None else _packed(emb_wb, (ENC_WIDTH, cc, cg), device)
+    enc_p = packed_fragments(enc_wb, (ENC_WIDTH,), device)
+    emb_p = None if emb_wb is None else packed_fragments(emb_wb, (ENC_WIDTH, cc, cg), device)
     att_parts = (enc_widths[-1], cc, d) if att_includes_center else (enc_widths[-1], d)
-    att_p = _packed(att_wb, att_parts, device)
+    att_p = packed_fragments(att_wb, att_parts, device)
     out = torch.empty((b, s, d), dtype=torch.float32, device=device)
     if out.numel():
         def ints(widths):
             return (len(widths), *widths, *(0,) * (MAX_LAYERS - len(widths)))
 
-        tile = tile_centres(b * s, k, _sm_count(device.index if device.index is not None
-                                                  else torch.cuda.current_device()))
+        tile = tile_centres(b * s, k, sm_count(device))
         _cuda.launch(
             "attentive_aggregate", "pwclo_attentive_aggregate", device,
             center_xyz.data_ptr(), grouped_xyz.data_ptr(), center_feat.data_ptr(),

@@ -5,17 +5,23 @@ the eval-mode BatchNorm folded into each matmul (:func:`fold_bn`) a set-conv
 block is ``max_K relu(… relu(x·W0 + b0) … ·WL + bL)``. On a CUDA tensor
 :func:`mlp_maxpool` launches the kernel of ``csrc/mlp_maxpool.cu``, which
 keeps every intermediate on chip and writes only ``(B, S, Cout)``; on a CPU
-tensor it runs :func:`mlp_maxpool_plain`. The two sum in different orders:
-they agree within atol 3e-5, rtol 1e-4.
+tensor it runs :func:`mlp_maxpool_plain`. The kernel multiplies on the
+tensor cores in 3xTF32 (``csrc/tf32x3.cuh``: every operand split into two
+TF32 parts, three TF32 products a product) and sums in another order: the
+two agree within atol 3e-5, rtol 1e-4. It reads the stack in the layout
+``ops/tf32x3.py::pack_fragments`` makes, built once per stack that
+``PointMLP.folded()`` gives and kept with it; the wrapper picks the tile
+(``ops/tf32x3.py::mlp_tile``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
+from pwclonet_pylidarslam_torch.ops.tf32x3 import Stack, mlp_tile, packed_fragments, sm_count
 
 MAX_LAYERS = 3  # layers per stack the kernels take
 
@@ -40,19 +46,10 @@ class FoldedStack(tuple):
 
 
 def fold_stack(layers: Sequence[Sequence[torch.Tensor]], eps: float = 1e-5) -> FoldedStack:
-    """Fold every ``(kernel, scale, bias, mean, var)`` of a stack and return
-    ``(weights, biases)`` as views of one packed float32 buffer
-    ``W0, b0, W1, b1, …``: the layout the kernels read, so a stack folded
-    here is launched without another copy."""
+    """Fold every ``(kernel, scale, bias, mean, var)`` of a stack into
+    float32 ``(weights, biases)``."""
     folded = [fold_bn(*layer, eps=eps) for layer in layers]
-    packed = torch.cat([t.reshape(-1).float() for wb in folded for t in wb])
-    weights, biases, off = [], [], 0
-    for w, b in folded:
-        weights.append(packed[off : off + w.numel()].view(w.shape))
-        off += w.numel()
-        biases.append(packed[off : off + b.numel()])
-        off += b.numel()
-    return FoldedStack(weights, biases)
+    return FoldedStack([w.float() for w, _ in folded], [b.float() for _, b in folded])
 
 
 def check_stack(name: str, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -71,58 +68,44 @@ def check_stack(name: str, weights: Sequence[torch.Tensor], biases: Sequence[tor
     return tuple(widths)
 
 
-def packed_params(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-                  device: torch.device) -> torch.Tensor:
-    """The stack as one contiguous float32 CUDA buffer ``W0, b0, W1, b1, …``.
-    Views made by :func:`fold_stack` already are one: its first weight is
-    returned as it is. Anything else is copied together."""
-    parts = [t for wb in zip(weights, biases) for t in wb]
-    for t in parts:
-        if t.device != device:
-            raise ValueError(f"parameters must lie on {device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"parameters must be float32, got {t.dtype}")
-    ptr = parts[0].data_ptr()
-    for t in parts:
-        if not t.is_contiguous() or t.data_ptr() != ptr:
-            return torch.cat([p.reshape(-1) for p in parts])
-        ptr += t.numel() * t.element_size()
-    return parts[0]
-
-
-def mlp_maxpool_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                      biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``x (B, S, K, Cin)`` → ``max_K relu-MLP(x) (B, S, Cout)`` with folded
-    ``weights[i] (C_i, C_{i+1})`` and ``biases[i] (C_{i+1},)``."""
+def mlp_maxpool_plain(x: torch.Tensor, wb: Stack) -> torch.Tensor:
+    """``x (B, S, K, Cin)`` → ``max_K relu-MLP(x) (B, S, Cout)`` with the
+    folded stack ``wb``: ``weights[i] (C_i, C_{i+1})``, ``biases[i]
+    (C_{i+1},)``."""
     h = x
-    for w, b in zip(weights, biases):
+    for w, b in zip(*wb):
         h = torch.relu(torch.matmul(h, w) + b)
     return torch.amax(h, dim=-2)
 
 
-def _mlp_maxpool_cuda(x, weights, biases) -> torch.Tensor:
+def _mlp_maxpool_cuda(x: torch.Tensor, wb: Stack,
+                      tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The kernel. ``tile`` is ``(block_centres, tile_rows)``; None, which is
+    what :func:`mlp_maxpool` passes, takes :func:`mlp_tile`'s, and the other
+    values are there to be timed against it."""
     _cuda.check_cuda_tensor("x", x, (torch.float32,), 4)
     b, s, k, cin = x.shape
-    widths = check_stack("mlp_maxpool", weights, biases, cin)
+    widths = check_stack("mlp_maxpool", *wb, cin)
     if k < 1:
         raise ValueError("x must have at least one neighbour per centre")
-    params = packed_params(weights, biases, x.device)
+    params = packed_fragments(wb, (cin,), x.device)
     out = torch.empty((b, s, widths[-1]), dtype=torch.float32, device=x.device)
     if out.numel():
+        block_centres, tile_rows = tile or mlp_tile(b * s, k, max(widths), sm_count(x.device))
         padded = widths + (0,) * (MAX_LAYERS - len(widths))
         _cuda.launch(
             "mlp_maxpool", "pwclo_mlp_maxpool", x.device,
             x.data_ptr(), params.data_ptr(), b * s, k, len(widths), cin, *padded,
-            out.data_ptr(), _cuda.stream_of(x),
+            block_centres, tile_rows, out.data_ptr(), _cuda.stream_of(x),
         )
     return out
 
 
-def mlp_maxpool(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``x (B, S, K, Cin)`` → ``(B, S, Cout)``, BN already folded into
-    ``weights``/``biases``. CPU tensors take the plain version; CUDA tensors
-    take the kernel, which raises on a dtype or shape it does not take."""
+def mlp_maxpool(x: torch.Tensor, wb: Stack) -> torch.Tensor:
+    """``x (B, S, K, Cin)`` → ``(B, S, Cout)``, with ``wb`` the stack's
+    ``(weights, biases)``, BN already folded (``PointMLP.folded()``). CPU
+    tensors take the plain version; CUDA tensors take the kernel, which
+    raises on a dtype or shape it does not take."""
     if x.device.type == "cpu":
-        return mlp_maxpool_plain(x, weights, biases)
-    return _mlp_maxpool_cuda(x.contiguous(), weights, biases)
+        return mlp_maxpool_plain(x, wb)
+    return _mlp_maxpool_cuda(x.contiguous(), wb)

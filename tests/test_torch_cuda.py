@@ -275,27 +275,56 @@ def full_fp32():
 
 
 # main-path shapes, then odd ones: K not a power of two, widths that are no
-# multiple of the thread tile, a last tile of fewer centres, one layer
+# multiple of 8, a last tile of fewer centres, one layer; then centres that
+# span tiles (K = 100 and 200 at width 128: 64-row tiles; K = 4096: 32 tiles
+# of 128 rows), a ragged last tile, a single centre, B = 9 at small S, one
+# layer 128 wide
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,k,cin,widths", [
     (1, 2048, 32, 6, (8, 8, 16)), (1, 1024, 32, 19, (16, 16, 32)), (1, 256, 16, 35, (32, 32, 64)),
     (1, 64, 16, 67, (64, 64, 128)), (1, 64, 16, 67, (128, 64, 64)), (1, 2048, 8, 67, (128, 64)),
     (9, 1024, 8, 67, (128, 64)), (2, 333, 6, 11, (16, 9, 33)), (3, 7, 5, 3, (5,)),
     (1, 5, 100, 20, (40, 24)),
+    (1, 5, 100, 67, (128, 64)), (2, 3, 200, 19, (16, 128)), (1, 2, 4096, 6, (8,)),
+    (1, 1023, 8, 67, (128, 64)), (1, 2047, 32, 6, (8, 8, 16)), (1, 1, 16, 67, (64, 64, 128)),
+    (1, 1, 32, 6, (8, 8, 16)), (9, 37, 16, 35, (32, 32, 64)), (2, 100, 16, 67, (128,)),
 ])
 def test_mlp_maxpool_kernel_matches_plain(cuda_device, full_fp32, rng, b, s, k, cin, widths):
     x = _rand(rng, cuda_device, b, s, k, cin)
-    ws, bs = _stack(rng, cin, widths, cuda_device)
-    out = ops.mlp_maxpool(x, ws, bs)
+    wb = _stack(rng, cin, widths, cuda_device)
+    out = ops.mlp_maxpool(x, wb)
     torch.cuda.synchronize()
-    # sums of up to 128 products in another order than the library's
-    torch.testing.assert_close(out, mlp_maxpool_plain(x, ws, bs), atol=3e-5, rtol=1e-4)
-    # the packed views of PointMLP.folded() launch without a copy, same result
+    # 3xTF32 products (about 22 bits of each operand) summed in another
+    # order than the library's fp32 matmul
+    torch.testing.assert_close(out, mlp_maxpool_plain(x, wb), atol=3e-5, rtol=1e-4)
+    # a stack folded by fold_stack (PointMLP.folded()) keeps its fragment
+    # layout: a second call reuses it, same result
     from pwclonet_pylidarslam_torch.ops.mlp import fold_stack
-    ones = [torch.ones(w.shape[1], device=cuda_device) for w in ws]
+    ones = [torch.ones(w.shape[1], device=cuda_device) for w in wb[0]]
     zeros = [torch.zeros_like(o) for o in ones]
-    layers = [(w, o, bias, z, o - 1e-5) for w, o, bias, z in zip(ws, ones, bs, zeros)]
-    torch.testing.assert_close(ops.mlp_maxpool(x, *fold_stack(layers)), out, atol=1e-6, rtol=1e-6)
+    layers = [(w, o, bias, z, o - 1e-5) for w, bias, o, z in zip(*wb, ones, zeros)]
+    folded = fold_stack(layers)
+    torch.testing.assert_close(ops.mlp_maxpool(x, folded), out, atol=1e-6, rtol=1e-6)
+    assert torch.equal(ops.mlp_maxpool(x, folded), ops.mlp_maxpool(x, folded))
+    assert len(folded.derived) == 1
+
+
+# the first pyramid level on raw grouped coordinates at KITTI's reach:
+# x = [q - p, q] (models/pointnet2.py), |p| from 2 to 80 m, neighbours within
+# about a metre; plain TF32 is off by ~1e-2 here
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,k,widths", [(1, 2048, 32, (8, 8, 16)), (2, 2048, 32, (8, 8, 16)),
+                                          (1, 333, 32, (8, 8, 16)), (1, 64, 32, (128, 64))])
+def test_mlp_maxpool_kernel_at_kittis_reach(cuda_device, full_fp32, rng, b, s, k, widths):
+    direction = rng.normal(size=(b, s, 1, 3))
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    p = direction * rng.uniform(2.0, 80.0, size=(b, s, 1, 1))
+    q = p + rng.normal(size=(b, s, k, 3)) * 0.5
+    x = torch.from_numpy(np.concatenate([q - p, q], -1).astype(np.float32)).to(cuda_device)
+    wb = _stack(rng, 6, widths, cuda_device)
+    out = ops.mlp_maxpool(x, wb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, mlp_maxpool_plain(x, wb), atol=3e-5, rtol=1e-4)
 
 
 # main-path shapes and widths (as tools/time_point_kernels.py records them),
@@ -363,7 +392,7 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     knn(pts, pts, 4)
     x = torch.rand(1, 8, 4, 6, device=cuda_device)
     wb = _stack(rng, 6, (8,), cuda_device)
-    ops.mlp_maxpool(x, *wb)
+    ops.mlp_maxpool(x, wb)
     agg = (pts[:, :8], pts[:, :32].reshape(1, 8, 4, 3), x[:, :, 0], x,
            _stack(rng, 10, (6,), cuda_device), None, _stack(rng, 6 + 6 + 6, (6,), cuda_device), True)
     ops.attentive_aggregate(*agg)
@@ -381,15 +410,15 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     with pytest.raises(ValueError):
         knn(pts, pts, 33)  # above the kernel's sorted-list size
     with pytest.raises(TypeError):
-        ops.mlp_maxpool(x.double(), *wb)
+        ops.mlp_maxpool(x.double(), wb)
     with pytest.raises(ValueError):
-        ops.mlp_maxpool(x, *_stack(rng, 7, (8,), cuda_device))  # Cin does not chain
-    with pytest.raises(ValueError):  # a tile of K rows that no block's shared memory holds
-        ops.mlp_maxpool(torch.rand(1, 2, 4096, 6, device=cuda_device), *wb)
+        ops.mlp_maxpool(x, _stack(rng, 7, (8,), cuda_device))  # Cin does not chain
+    with pytest.raises(ValueError):  # a layer wider than the kernel's 128 columns
+        ops.mlp_maxpool(x, _stack(rng, 6, (130,), cuda_device))
     with pytest.raises(ValueError):  # attention width differs from the embedding's
         ops.attentive_aggregate(*agg[:6], _stack(rng, 18, (5,), cuda_device), True)
     with pytest.raises(ValueError):  # a layer wider than the kernel's 128 columns
         ops.attentive_aggregate(*agg[:6], _stack(rng, 18, (130, 6), cuda_device), True)
     with pytest.raises(ValueError):  # parameters left on the CPU
-        ops.mlp_maxpool(x, *_stack(rng, 6, (8,), "cpu"))
+        ops.mlp_maxpool(x, _stack(rng, 6, (8,), "cpu"))
     assert _cuda.launch_counts() == once

@@ -18,11 +18,8 @@ from pwclonet_pylidarslam_torch.models.costvolume import CostVolume
 from pwclonet_pylidarslam_torch.models.layers import PointMLP
 from pwclonet_pylidarslam_torch.models.pointnet2 import SetConv, SetUpConv
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain
-from pwclonet_pylidarslam_torch.ops.mlp import (
-    check_stack,
-    mlp_maxpool_plain,
-    packed_params,
-)
+from pwclonet_pylidarslam_torch.ops.mlp import check_stack, mlp_maxpool_plain
+from pwclonet_pylidarslam_torch.ops.tf32x3 import pack_fragments, packed_fragments
 from pwclonet_pylidarslam_tpu.models.costvolume import CostVolume as JCostVolume
 from pwclonet_pylidarslam_tpu.models.layers import PointMLP as JPointMLP
 from pwclonet_pylidarslam_tpu.models.pointnet2 import SetConv as JSetConv
@@ -71,7 +68,7 @@ def test_mlp_maxpool_matches_pallas(rng, shape, widths):
     x = _f32(rng, *shape)
     wb = _stack(rng, shape[-1], widths)
     ref = np.asarray(mlp_maxpool_pallas(jnp.asarray(x), *_j(wb)))
-    out = ops.mlp_maxpool(torch.from_numpy(x), *_t(wb))
+    out = ops.mlp_maxpool(torch.from_numpy(x), _t(wb))
     assert out.shape == shape[:2] + (widths[-1],) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, **MLP_TOL)
 
@@ -99,7 +96,7 @@ def test_attentive_aggregate_matches_pallas(rng, with_emb, s, k):
 def test_cpu_wrappers_run_the_plain_versions(rng):
     x = torch.from_numpy(_f32(rng, 1, 5, 3, 4))
     wb = _t(_stack(rng, 4, (6,)))
-    assert torch.equal(ops.mlp_maxpool(x, *wb), mlp_maxpool_plain(x, *wb))
+    assert torch.equal(ops.mlp_maxpool(x, wb), mlp_maxpool_plain(x, wb))
     cxyz, gxyz = torch.from_numpy(_f32(rng, 1, 5, 3)), torch.from_numpy(_f32(rng, 1, 5, 3, 3))
     cfeat, gfeat = torch.from_numpy(_f32(rng, 1, 5, 2)), torch.from_numpy(_f32(rng, 1, 5, 3, 6))
     enc_wb, att_wb = _t(_stack(rng, 10, (6,))), _t(_stack(rng, 6 + 2 + 6, (6,)))
@@ -121,17 +118,13 @@ def test_fold_stack_packs_what_the_kernels_read(rng):
         ref_w, ref_b = ops.fold_bn(*(getattr(mod, f"{n}_{i}") for n in
                                      ("kernel", "scale", "bias", "mean", "var")), mod.eps)
         assert torch.equal(w, ref_w) and torch.equal(b, ref_b)
-    # views of one buffer W0, b0, W1, b1: handed to the kernel without a copy
-    packed = packed_params(weights, biases, torch.device("cpu"))
-    assert packed.data_ptr() == weights[0].data_ptr()
-    flat = torch.cat([t.reshape(-1) for wb in zip(weights, biases) for t in wb])
-    assert biases[-1].data_ptr() + 16 * 4 - weights[0].data_ptr() == flat.numel() * 4
-    # separate tensors are copied into that layout
-    loose = packed_params([w.clone() for w in weights], [b.clone() for b in biases],
-                          torch.device("cpu"))
-    assert loose.data_ptr() != weights[0].data_ptr() and torch.equal(loose, flat)
+    # the kernel's layout of the fold (mma fragment order), made once and kept with it
+    cpu = torch.device("cpu")
+    packed = packed_fragments(mod.folded(), (7,), cpu)
+    assert torch.equal(packed, pack_fragments(weights, biases, (7,)))
+    assert packed_fragments(mod.folded(), (7,), cpu) is packed
     with pytest.raises(TypeError, match="float32"):
-        packed_params([w.double() for w in weights], biases, torch.device("cpu"))
+        packed_fragments(([w.double() for w in weights], biases), (7,), cpu)
 
 
 def test_check_stack_raises_on_a_stack_that_does_not_chain(rng):

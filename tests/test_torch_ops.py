@@ -190,7 +190,7 @@ def test_cpu_tensors_take_the_plain_path(rng):
     knn(pts, pts, 4)
     x = torch.from_numpy(rng.normal(size=(1, 8, 4, 3)).astype(np.float32))
     one = ((torch.ones(3, 3),), (torch.zeros(3),))
-    ops.mlp_maxpool(x, *one)
+    ops.mlp_maxpool(x, one)
     enc = ((torch.ones(10, 3),), (torch.zeros(3),))
     att = ((torch.ones(9, 3),), (torch.zeros(3),))
     ops.attentive_aggregate(pts[:, :8], x, pts[:, :8], x, enc, None, att, True)
@@ -216,7 +216,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 8, 4, 3)
     one = ((torch.ones(3, 3),), (torch.zeros(3),))
     with pytest.raises(ValueError, match="CUDA"):
-        _mlp_maxpool_cuda(x, *one)
+        _mlp_maxpool_cuda(x, one)
     with pytest.raises(ValueError, match="CUDA"):
         _attentive_aggregate_cuda(pts, x, pts, x, ((torch.ones(10, 3),), (torch.zeros(3),)),
                                   None, ((torch.ones(9, 3),), (torch.zeros(3),)), True)

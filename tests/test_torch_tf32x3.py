@@ -3,7 +3,7 @@
 ``csrc/attentive_aggregate.cu`` multiplies on the tensor cores in 3xTF32:
 every operand ``x`` is split into ``big = tf32(x)`` and ``small = tf32(x -
 big)`` and each product is summed as ``big*small' + small*big' +
-big*big'``, from weights that ``ops/costvolume.py::pack_fragments`` pads and
+big*big'``, from weights that ``ops/tf32x3.py::pack_fragments`` pads and
 lays out in mma fragment order. Here a plain PyTorch emulation of those
 products (TF32 rounding done with integer operations on the float32 bits, as
 ``csrc/tf32x3.cuh::tf32_bits`` does), reading the weights back out of the
@@ -19,13 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from pwclonet_pylidarslam_torch.ops.costvolume import (
-    ENC_WIDTH,
-    attentive_aggregate_plain,
-    pack_fragments,
-    pad8,
-    tile_centres,
-)
+from pwclonet_pylidarslam_torch.ops.costvolume import ENC_WIDTH, attentive_aggregate_plain
+from pwclonet_pylidarslam_torch.ops.tf32x3 import pack_fragments, pad8, tile_centres
 from pwclonet_pylidarslam_tpu.ops.pallas.costvolume_kernel import attentive_aggregate_pallas
 
 AGG_TOL = dict(atol=5e-5, rtol=1e-4)  # the kernel's bar against the plain version
@@ -192,17 +187,18 @@ def test_emulated_tf32x3_aggregate_matches_plain_and_pallas(rng, k, cc, cg, cros
 
 def test_a_folded_stack_is_laid_out_once():
     from pwclonet_pylidarslam_torch.models.layers import PointMLP
-    from pwclonet_pylidarslam_torch.ops.costvolume import _packed
+    from pwclonet_pylidarslam_torch.ops.tf32x3 import packed_fragments
 
     mlp = PointMLP(10 + 16 + 16, (128, 64, 64), generator=torch.Generator().manual_seed(0))
     wb = mlp.folded()
     assert mlp.folded() is wb  # the fold is kept while the parameters stand
     cpu = torch.device("cpu")
-    packed = _packed(wb, (ENC_WIDTH, 16, 16), cpu)
-    assert _packed(wb, (ENC_WIDTH, 16, 16), cpu) is packed
+    packed = packed_fragments(wb, (ENC_WIDTH, 16, 16), cpu)
+    assert packed_fragments(wb, (ENC_WIDTH, 16, 16), cpu) is packed
     assert torch.equal(packed, pack_fragments(*wb, (ENC_WIDTH, 16, 16)))
     # another split of the first layer's rows is another layout
-    assert _packed(wb, (ENC_WIDTH, 8, 24), cpu) is not packed
+    assert packed_fragments(wb, (ENC_WIDTH, 8, 24), cpu) is not packed
     # a plain (weights, biases) pair is laid out on each call, as it may change
     plain = (tuple(wb[0]), tuple(wb[1]))
-    assert _packed(plain, (ENC_WIDTH, 16, 16), cpu) is not _packed(plain, (ENC_WIDTH, 16, 16), cpu)
+    parts = (ENC_WIDTH, 16, 16)
+    assert packed_fragments(plain, parts, cpu) is not packed_fragments(plain, parts, cpu)

@@ -239,11 +239,11 @@ def recorded_fused_calls(cv_mod, mlp_mod, run) -> dict:
                                           gfeat.clone(), enc_wb, emb_wb, att_wb, center))
         return agg_cuda(cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center)
 
-    def mlp(x, weights, biases):
+    def mlp(x, *stack):  # (x, wb), or (x, weights, biases) in older trees
         b, s, k, cin = x.shape
-        key = f"B={b} S={s} K={k} Cin={cin} ({widths((weights,))})"
-        note("mlp_maxpool", key, (x.clone(), weights, biases))
-        return mlp_cuda(x, weights, biases)
+        key = f"B={b} S={s} K={k} Cin={cin} ({widths(stack[0] if len(stack) == 1 else stack)})"
+        note("mlp_maxpool", key, (x.clone(), *stack))
+        return mlp_cuda(x, *stack)
 
     cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda = aggregate, mlp
     try:
@@ -264,8 +264,8 @@ def fused_row(kind: str, kernel, plain, key: str, launches: int, args: tuple, re
         stacks = [wb for wb in (enc_wb, emb_wb, att_wb) if wb is not None]
         rows, inputs = gxyz.shape[0] * gxyz.shape[1] * gxyz.shape[2], (cxyz, gxyz, cfeat, gfeat)
     else:
-        x, weights, biases = args
-        stacks = [(weights, biases)]
+        x, *stack = args
+        stacks = [stack[0] if len(stack) == 1 else stack]
         rows, inputs = x.shape[0] * x.shape[1] * x.shape[2], (x,)
     macs = rows * sum(w.shape[0] * w.shape[1] for wb in stacks for w in wb[0])
     nbytes = 4 * (sum(t.numel() for t in inputs) + out.numel()
