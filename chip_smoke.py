@@ -72,6 +72,22 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    steps when each does only its key reduction and its wait, measured with
    the same kernel stripped of the distance update.
 
+7. classic ICP odometry (plain PyTorch: no kernel of its own, and none of
+   the six above launched) at the full width of ``config/kitti_projective.yaml``
+   and ``config/kitti_voxel_accuracy.yaml`` (8192 points): for each mode, the
+   card's state after 8 frames carried to the CPU by a snapshot and one step
+   on each (poses within 1e-4 m and 1e-4 rad; the share of differing
+   model-map pixels or voxel-table slots printed); the 12-frame curve
+   sequence of ``tests/test_icp_odometry.py`` against ground truth on the
+   card (projective: ATE < 0.02 m/frame and drift < 0.15 m, that test's
+   bounds; voxel: 1.5x the JAX reference's worst on the same scans); one
+   step with the TF32 switches on globally gives the same pose (1e-6) and
+   leaves them as they were; and, over a 32-frame along-path curve, the
+   ms/frame of ``process_next_frame`` and ``process_sequence``, device ms,
+   launches and idle share a frame from the profiler, host reads and
+   Gauss-Newton iterations a frame, synchronizing calls of one step, and
+   peak memory.
+
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
 thread count, the kNN kernel's at each number of queries a block, the MLP
@@ -81,7 +97,8 @@ Exits non-zero, without the last line, if CUDA is unavailable or any check
 fails. ``--profile`` profiles one full-width forward of each configuration
 and prints the tables of those and of the train step on stderr; device time
 by kernel, launches and idle share go into the metrics. ``--kernels`` stops
-after phase 2 and prints the cases and the variants (no last line).
+after phase 2 and prints the cases and the variants (no last line); ``--icp``
+runs phase 7 alone (no build) and prints its metrics (no last line).
 """
 
 from __future__ import annotations
@@ -96,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -130,6 +148,8 @@ from pwclonet_pylidarslam_torch.slam.deep_odometry import (  # noqa: E402
     DeepOdometryConfig,
     PWCLONetOdometry,
 )
+from pwclonet_pylidarslam_torch.evaluation import metrics as odo_metrics  # noqa: E402
+from pwclonet_pylidarslam_torch.slam import icp_odometry as icp  # noqa: E402
 from pwclonet_pylidarslam_torch.train import state as tstate  # noqa: E402
 from pwclonet_pylidarslam_torch.train.fast_lane import run_fast_lane_recipe  # noqa: E402
 from pwclonet_pylidarslam_torch.train.losses import pwclonet_loss  # noqa: E402
@@ -1036,6 +1056,243 @@ def train_timing_phase(train: dict, show_table: bool) -> dict:
     }
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 7: classic ICP odometry at full width (plain PyTorch, no kernel)
+# ---------------------------------------------------------------------------
+
+# the two configurations users run: config/kitti_projective.yaml (8192
+# points, a 64x720 map, 20 keyframes, 15 alignments, Huber 0.1, the gate
+# from 4.0 to 0.5 m) and config/kitti_voxel_accuracy.yaml (voxel
+# association: 1.5 m cells in octants, 2^14 x 64 buckets, 0.45 m grid
+# sample, candidate cache at margin 0.25, latest keyframe skipped)
+ICP_CONFIGS = {
+    "projective": icp.ICPConfig(num_points=8192),
+    "voxel": icp.ICPConfig(num_points=8192, association="voxel"),
+}
+ICP_FRAMES = 32  # the timing sequence: along-path world, curving
+ICP_CARRY_FRAMES = 8  # card-against-CPU step: the card's state after 8 frames
+# card against CPU from one state, one step: the same ops on other hardware
+# (libm, reduction order) may flip a pixel or a bucket boundary, which moves
+# one match; the reference's own step moves by ~1e-6 when its scan moves by
+# one float32 ulp
+ICP_STEP_ATOL_M = 1e-4
+ICP_STEP_ATOL_RAD = 1e-4
+# the whole 12-frame curve sequence of tests/test_icp_odometry.py against
+# ground truth. Projective: that test's bounds. Voxel: no test holds it;
+# the JAX reference on these scans (this generator, 8192 points) on the CPU
+# gave ATE 0.00922 m/frame and final drift 0.00683 m, and on the scans moved
+# by one float32 ulp up and down 0.00612 / 0.00446 and 0.00818 / 0.00706;
+# the bound is 1.5x the worst of the three
+ICP_ACCURACY_BOUNDS = {
+    "projective": {"ate": 0.02, "drift": 0.15},
+    "voxel": {"ate": 1.5 * 0.00922, "drift": 1.5 * 0.00706},
+}
+TF32_POSE_ATOL = 1e-6  # TF32 products would move the pose by ~1e-3
+
+
+def icp_rotation_gap(a: np.ndarray, b: np.ndarray) -> float:
+    """Angle between two rotations, from the skew part of ``aᵀb`` in
+    float64 (``arccos`` of the trace reads ~5e-4 rad for equal float32
+    rotations)."""
+    rel = a[:3, :3].astype(np.float64).T @ b[:3, :3].astype(np.float64)
+    w = 0.5 * np.array([rel[2, 1] - rel[1, 2], rel[0, 2] - rel[2, 0], rel[1, 0] - rel[0, 1]])
+    return float(np.arcsin(min(1.0, np.linalg.norm(w))))
+
+
+def icp_card_vs_cpu(mode: str, scans: np.ndarray, snap_dir: str) -> dict:
+    """Carry the card's state after ``ICP_CARRY_FRAMES`` frames over to the
+    CPU through a snapshot, step once on each, compare the poses and the
+    share of model-map pixels or voxel-table slots that differ."""
+    cfg = ICP_CONFIGS[mode]
+    card = icp.ICPOdometry(cfg, device="cuda")
+    card.init()
+    card.process_sequence(scans[:ICP_CARRY_FRAMES])
+    path = str(Path(snap_dir) / f"{mode}.npz")
+    card.snapshot(path)
+    cpu = icp.ICPOdometry(cfg, device="cpu")
+    cpu.restore(path)
+    card.restore(path)
+    state = {"cuda": card.state, "cpu": cpu.state}
+    scan = scans[ICP_CARRY_FRAMES]
+    card.process_next_frame(scan)
+    cpu.process_next_frame(scan)
+    pa, pb = card.results[-1].pose, cpu.results[-1].pose
+    trans_gap = float(np.abs(pa[:3, 3] - pb[:3, 3]).max())
+    rot_gap = icp_rotation_gap(pa, pb)
+    if mode == "projective":
+        a, b = card.state.model.cpu(), cpu.state.model
+        what = "model-map pixels"
+    else:
+        predicted = {d: st.pose @ st.last_rel for d, st in state.items()}
+        with icp.full_fp32_products():
+            ta = icp.frame_voxel_table(cfg, state["cuda"].map, predicted["cpu"].cuda())
+            tb = icp.frame_voxel_table(cfg, state["cpu"].map, predicted["cpu"])
+        a, b = ta.points.cpu().reshape(-1, 3), tb.points.reshape(-1, 3)
+        what = "voxel-table slots"
+    differ = float((a != b).any(dim=-1).float().mean())
+    # another point won the pixel or the slot (not only its last bits)
+    moved = float(((a - b).abs() > 1e-3).any(dim=-1).float().mean())
+    log(f"ICP {mode}: card vs CPU one step: {trans_gap:.3g} m, {rot_gap:.3g} rad; "
+        f"{100 * differ:.4f} % of {what} differ in some bit, {100 * moved:.4f} % by > 1 mm")
+    check(trans_gap <= ICP_STEP_ATOL_M and rot_gap <= ICP_STEP_ATOL_RAD,
+          f"ICP {mode}: card and CPU steps from one state within {ICP_STEP_ATOL_M} m and "
+          f"{ICP_STEP_ATOL_RAD} rad")
+    return {"step_trans_gap_m": trans_gap, "step_rot_gap_rad": rot_gap,
+            "differing_share": differ, "differing_share_over_1mm": moved, "differing_of": what,
+            "num_matches": [float(card.results[-1].num_matches),
+                            float(cpu.results[-1].num_matches)]}
+
+
+def icp_accuracy(mode: str) -> dict:
+    scans, gt = generate_sequence(SyntheticSequenceConfig(
+        n_frames=12, trajectory="curve", speed=1.0, seed=2))
+    odo = icp.ICPOdometry(ICP_CONFIGS[mode], device="cuda")
+    odo.init()
+    for scan in scans:
+        odo.process_next_frame(scan)
+    pred = odo.absolute_poses()
+    ate, _ = odo_metrics.compute_ate(odo_metrics.compute_relative_poses(pred),
+                                     odo_metrics.compute_relative_poses(gt))
+    drift = float(np.linalg.norm(pred[-1][:3, 3] - gt[-1][:3, 3]))
+    bound = ICP_ACCURACY_BOUNDS[mode]
+    log(f"ICP {mode}: 12-frame curve sequence on the card: ATE {ate:.5f} m/frame, "
+        f"final drift {drift:.5f} m")
+    check(ate < bound["ate"] and drift < bound["drift"],
+          f"ICP {mode}: ATE < {bound['ate']:.5f} m/frame and drift < {bound['drift']:.5f} m")
+    return {"ate_m_per_frame": float(ate), "final_drift_m": drift, "bounds": bound}
+
+
+def icp_tf32_check(scans: np.ndarray) -> dict:
+    """One full-width projective step with the TF32 switches off, then the
+    same step with them on globally: the step sets its own precision."""
+    cfg = ICP_CONFIGS["projective"]
+    odo = icp.ICPOdometry(cfg, device="cuda")
+    odo.init()
+    odo.process_sequence(scans[:4])
+    st = odo.state
+    pts = torch.from_numpy(scans[4]).cuda()
+    poses = {}
+    for tf32 in (False, True):
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            _, res = icp.process_frame(cfg, st, pts)
+            poses[tf32] = res.pose.cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "ICP: the TF32 switches are restored after the step")
+    gap = float(np.abs(poses[True] - poses[False]).max())
+    check(gap <= TF32_POSE_ATOL,
+          f"ICP: a step under global TF32 gives the same pose ({gap:.3g} <= {TF32_POSE_ATOL})")
+    return {"tf32_on_pose_gap": gap}
+
+
+def icp_sync_sites(cfg, state, scan: torch.Tensor) -> dict:
+    """Synchronizing calls of one step, as ``torch.cuda.set_sync_debug_mode``
+    flags them, by the Python line that made them."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            icp.process_frame(cfg, state, scan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites: dict = {}
+    for w in seen:
+        if "synchroniz" in str(w.message).lower():
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def icp_timing(mode: str, scans: np.ndarray) -> dict:
+    """ms/frame of ``process_next_frame`` (median, after the first frame) and
+    of ``process_sequence`` (upload, steps, one fetch), device ms, launches
+    and idle share per frame from a profiled stretch of frames, host reads
+    and Gauss-Newton iterations per frame, peak memory."""
+    cfg = ICP_CONFIGS[mode]
+    odo = icp.ICPOdometry(cfg, device="cuda")
+    odo.init()
+    odo.process_next_frame(scans[0])  # warm
+    odo.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = []
+    for scan in scans:
+        t0 = time.perf_counter()
+        odo.process_next_frame(scan)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    iters = list(odo.iterations)
+    reads = list(odo.host_reads)
+    peak = torch.cuda.max_memory_allocated()
+    seq_ms = []
+    for _ in range(2):
+        odo.init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        odo.process_sequence(scans)  # ends in a device-to-host copy
+        seq_ms.append(1e3 * (time.perf_counter() - t0) / len(scans))
+    # a profiled stretch of frames from the state after the warm-up frames
+    prof_frames = 4
+    odo.init()
+    odo.process_sequence(scans[:8])
+    st0 = odo.state
+    dev_scans = torch.from_numpy(scans[8:8 + prof_frames]).cuda()
+
+    def stretch():
+        st = st0
+        for t in range(prof_frames):
+            st, _ = icp.process_frame(cfg, st, dev_scans[t])
+
+    _, device = profile_device_events(stretch)
+    prof = summarize_device_events(device)
+    sites = icp_sync_sites(cfg, st0, dev_scans[0])
+    syncs = sum(sites.values())
+    out = {
+        "process_next_frame_ms_median": statistics.median(frame_ms[1:]),
+        "process_sequence_ms_per_frame": statistics.median(seq_ms),
+        "process_sequence_ms_per_frame_runs": seq_ms,
+        "device_ms_per_frame": prof["device_ms"] / prof_frames,
+        "launches_per_frame": prof["device_launches"] / prof_frames,
+        "idle_share": prof["idle_share"],
+        "gn_iterations_per_frame": statistics.mean(iters),
+        "host_reads_per_frame": statistics.mean(reads),
+        "synchronizing_calls_one_step": syncs, "synchronizing_call_sites": sites,
+        "peak_memory_bytes": peak,
+        "top_kernels": prof["top_kernels"][:6],
+    }
+    log(f"ICP {mode}: process_next_frame {out['process_next_frame_ms_median']:.2f} ms/frame, "
+        f"process_sequence {out['process_sequence_ms_per_frame']:.2f} ms/frame, device "
+        f"{out['device_ms_per_frame']:.3f} ms and {out['launches_per_frame']:.0f} launches a "
+        f"frame, idle {out['idle_share']:.3f}, {out['gn_iterations_per_frame']:.2f} GN "
+        f"iterations and {out['host_reads_per_frame']:.2f} host reads a frame "
+        f"({syncs} synchronizing calls in one step), peak {peak / 2**20:.0f} MiB")
+    return out
+
+
+def icp_phase() -> dict:
+    log(f"generating a {ICP_FRAMES}-frame along-path curve sequence at 8192 points")
+    t0 = time.perf_counter()
+    scans, _ = generate_sequence(SyntheticSequenceConfig(
+        n_frames=ICP_FRAMES, trajectory="curve", yaw_rate_deg=2.0, speed=1.0, seed=5,
+        world="along_path"))
+    gen_s = time.perf_counter() - t0
+    out = {"sequence_gen_s": gen_s, "configs": {k: repr(v) for k, v in ICP_CONFIGS.items()}}
+    _cuda.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as snap_dir:
+        for mode in ICP_CONFIGS:
+            out[mode] = {**icp_card_vs_cpu(mode, scans, snap_dir), **icp_accuracy(mode)}
+    out["tf32"] = icp_tf32_check(scans)
+    for mode in ICP_CONFIGS:
+        out[mode].update(icp_timing(mode, scans))
+    counts = _cuda.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          "ICP path launched none of the point-op kernels (plain PyTorch)")
+    return out
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1048,6 +1305,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one full-width forward of each configuration")
+    parser.add_argument("--icp", action="store_true",
+                        help="run phase 7 alone (classic ICP odometry, no kernel build); "
+                             "prints its metrics and no ok line")
     parser.add_argument("--kernels", action="store_true",
                         help="stop after phase 2: build, each kernel against its plain version, "
                              "and the FPS, kNN and MLP launch variants; prints no ok line")
@@ -1058,6 +1318,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products, as on the CPU
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    if args.icp:
+        log("phase 7 alone: classic ICP odometry at full width, projective and voxel")
+        print(card_line())
+        print(json.dumps({"icp": icp_phase()}))
+        return 0
 
     log("phase 1: build the kernels")
     t0 = time.perf_counter()
@@ -1121,6 +1386,9 @@ def main() -> int:
     if args.profile:
         profiles = {label: profile_forward(label, odo, scans) for label, odo in odos.items()}
 
+    log("phase 7: classic ICP odometry at full width, projective and voxel")
+    icp_metrics = icp_phase()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         head = cases[name][0]
@@ -1150,7 +1418,7 @@ def main() -> int:
         "fused_vs_unfused_max_pose_gap": fused_gap,
         **{label: {**main[label], **times[label]} for label in odos},
         "train": {**train, **train_times}, "learning_recipe": learning,
-        "profile": profiles, "total_s": time.perf_counter() - t_start,
+        "profile": profiles, "icp": icp_metrics, "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
     print(json.dumps({"metrics": metrics}))
@@ -1162,6 +1430,9 @@ def main() -> int:
     finite += [train_times[key] for key in ("train_step_ms", "train_forward_ms",
                                             "train_backward_ms", "train_pairs_per_s")]
     finite += [k[key] for k in kernels for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")]
+    finite += [icp_metrics[mode][key] for mode in ICP_CONFIGS
+               for key in ("process_next_frame_ms_median", "process_sequence_ms_per_frame",
+                           "device_ms_per_frame", "ate_m_per_frame", "final_drift_m")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
     check(len(kernels) == 6 and all(k["launches"] > 0 for k in kernels),
           "six kernels, each launched on its main path")

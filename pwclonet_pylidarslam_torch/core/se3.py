@@ -16,11 +16,12 @@ from pwclonet_pylidarslam_torch.core import rotation as rot
 def make_pose(rotation_mat: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
     """``(..., 3, 3)`` + ``(..., 3)`` → homogeneous ``(..., 4, 4)``."""
     batch = torch.broadcast_shapes(rotation_mat.shape[:-2], translation.shape[:-1])
-    out = torch.zeros(batch + (4, 4), dtype=rotation_mat.dtype, device=rotation_mat.device)
-    out[..., :3, :3] = rotation_mat
-    out[..., :3, 3] = translation
-    out[..., 3, 3] = 1.0
-    return out
+    top = torch.cat([rotation_mat.expand(batch + (3, 3)),
+                     translation.to(rotation_mat.dtype).expand(batch + (3,))[..., None]], dim=-1)
+    # the last row from a kernel: writing a Python 1.0 into a CUDA tensor
+    # copies it from the host and synchronizes
+    last = torch.eye(4, dtype=rotation_mat.dtype, device=rotation_mat.device)[3]
+    return torch.cat([top, last.expand(batch + (1, 4))], dim=-2)
 
 
 def identity_pose(batch_shape=(), dtype=torch.float32, device="cpu") -> torch.Tensor:

@@ -1,5 +1,6 @@
 """On the card: each CUDA kernel of ``pwclonet_pylidarslam_torch`` against
-its plain PyTorch version, at the shapes of the full-width main path.
+its plain PyTorch version, at the shapes of the full-width main path; and
+the ICP odometry's building blocks and step on the card against the CPU.
 
 Skipped where ``torch.cuda.is_available()`` is false. Imports nothing of
 JAX, so it runs on a GPU machine without it:
@@ -422,3 +423,94 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     with pytest.raises(ValueError):  # parameters left on the CPU
         ops.mlp_maxpool(x, _stack(rng, 6, (8,), "cpu"))
     assert _cuda.launch_counts() == once
+
+
+# --- classic ICP odometry (plain PyTorch): the card against the CPU ----------
+
+
+def _icp_scans(n_frames=6, num_points=2048):
+    from pwclonet_pylidarslam_torch.data.synthetic import SyntheticSequenceConfig, generate_sequence
+
+    return generate_sequence(SyntheticSequenceConfig(
+        n_frames=n_frames, trajectory="curve", speed=1.0, seed=2, num_points=num_points))
+
+
+@pytest.mark.cuda
+def test_zbuffer_scatter_card_equals_cpu(cuda_device, rng):
+    from pwclonet_pylidarslam_torch.core.projection import SphericalProjector
+
+    pts = (rng.normal(size=(2, 20000, 3)) * 20).astype(np.float32)
+    pts[:, 10000:15000] = pts[:, :5000]  # exact depth ties
+    chan = rng.normal(size=(2, 20000, 3)).astype(np.float32)
+    proj = SphericalProjector()
+    cpu = proj.build_projection_map(torch.from_numpy(pts), torch.from_numpy(chan))
+    card = proj.build_projection_map(torch.from_numpy(pts).to(cuda_device),
+                                      torch.from_numpy(chan).to(cuda_device))
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_voxel_table_and_nn_card_equal_cpu(cuda_device, rng, fused):
+    from pwclonet_pylidarslam_torch.slam import local_map as lm
+
+    pts = rng.uniform(-30, 30, (40000, 3)).astype(np.float32)
+    pts[30000:] = pts[:10000] + 0.05
+    nrm = rng.normal(size=(40000, 3)).astype(np.float32)
+    ok = (rng.uniform(size=40000) > 0.1).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (pts, nrm, ok)]
+    build = ((lambda p, n, v: lm.build_voxel_table_fused(p, n, v, 3.0, 0.45, 1 << 14, 64))
+             if fused else (lambda p, n, v: lm.build_voxel_table(p, n, v, 3.0, 1 << 14, 64)))
+    cpu = build(*args)
+    card = build(*(a.to(cuda_device) for a in args))
+    assert torch.equal(card.points.cpu(), cpu.points)
+    assert torch.equal(card.normals.cpu(), cpu.normals)
+    q = torch.from_numpy((pts[:8192] + rng.normal(size=(8192, 3)) * 0.4).astype(np.float32))
+    a = lm.voxel_nn(cpu, q, 1.5, 1.5, neighborhood=8)
+    b = lm.voxel_nn(card, q.to(cuda_device), 1.5, 1.5, neighborhood=8)
+    for x, y in zip(a, b):
+        assert torch.equal(y.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("association", ["projective", "voxel"])
+def test_icp_step_card_against_cpu(cuda_device, tmp_path, association):
+    from pwclonet_pylidarslam_torch.slam import icp_odometry as icp
+
+    scans, _ = _icp_scans()
+    cfg = icp.ICPConfig(num_points=2048, association=association)
+    card = icp.ICPOdometry(cfg, device=cuda_device)
+    card.init()
+    card.process_sequence(scans[:4])
+    path = str(tmp_path / "state.npz")
+    card.snapshot(path)
+    cpu = icp.ICPOdometry(cfg, device="cpu")
+    cpu.restore(path)
+    card.restore(path)
+    card.process_next_frame(scans[4])
+    cpu.process_next_frame(scans[4])
+    np.testing.assert_allclose(card.results[-1].pose, cpu.results[-1].pose, atol=1e-4)
+    assert abs(float(card.results[-1].num_matches) - float(cpu.results[-1].num_matches)) <= 2
+
+
+@pytest.mark.cuda
+def test_icp_step_pose_unchanged_with_tf32_on(cuda_device):
+    from pwclonet_pylidarslam_torch.slam import icp_odometry as icp
+
+    scans, _ = _icp_scans()
+    cfg = icp.ICPConfig(num_points=2048)
+    odo = icp.ICPOdometry(cfg, device=cuda_device)
+    odo.init()
+    odo.process_sequence(scans[:4])
+    pts = torch.from_numpy(scans[4]).to(cuda_device)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    poses = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            poses.append(icp.process_frame(cfg, odo.state, pts)[1].pose.cpu())
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert (poses[0] - poses[1]).abs().max() <= 1e-6
