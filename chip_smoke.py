@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of PWCLO-Net odometry and training on one NVIDIA GPU
-and check it.
+"""Run the PyTorch port (PWCLO-Net odometry and training, classic ICP, SLAM)
+on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--profile] [--kernels]
+    python3 chip_smoke.py [--profile] [--kernels] [--icp] [--slam]
 
 from the root of the repository, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which must pass:
@@ -88,6 +88,37 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    Gauss-Newton iterations a frame, synchronizing calls of one step, and
    peak memory.
 
+8. SLAM, loop closure and the pose-graph back end. Phase 2 also holds the
+   masked kNN ``torch.equal`` to its plain version (the loop-closure refine's
+   shape: a full-width submap's 16,384 points, warped, against the submap
+   with the mask its grid sampling left, k=1; k=8 with fewer valid refs than
+   k and with none; masked queries; k above N), the refine's gather, and the
+   back end's scatter-add at its default capacity (V=8192, M=33,024, C=6 and
+   36) against ``index_add_``. Then: the reference's drift scenario
+   (``slam/drift_injection.py``; 80 frames there and back at 2048 points,
+   the back end off and on) held to the four gates of
+   ``tests/test_pipeline.py::test_loop_backend_reduces_drift``, the absolute
+   one to the reference's own spread (``DRIFT_REFERENCE_SPREAD``) and, besides,
+   the error anchored at frame 1 to 0.5 m; slam-icp-loop
+   (``config/kitti_loop_backend.yaml``: ICP at 8192 points, the default loop
+   closure widths, back end and ``PGOConfig``) and slam-pwclonet-loop
+   (``config/kitti_pwclonet_backend.yaml``: the fused front end from phase
+   5's checkpoint) through ``SLAMRunner`` over an 80-frame there-and-back
+   sequence at 8192 points, the loop gates reduced to the drift scenario's
+   (submaps of 6 frames, overlap 2, 20 frames apart, within 30 m), each with
+   the counters zeroed before and read after: exactly 8 masked kNN and 8
+   gathers a refinement, 2 scatter-adds a Gauss-Newton iteration and 1 a CG
+   iteration launched, and the front end's per-frame counts; finite SE(3)
+   poses; result files written; ms a frame, a submap and an optimization,
+   iterations, host reads, device ms, launches and idle share over a
+   profiled window of frames, peak memory, constraints; then
+   ``run_slam_torch.py config=kitti_pwclonet_backend`` on the same
+   sequence (exact launch counts, files); and the card against the CPU from
+   one state: ``_refine_icp`` on a submap pair that closed a loop and
+   ``optimize`` on a 200-node circle with loop edges (poses within 1e-4, the
+   cost falling by the same factor within 1e-3), and ``optimize`` twice on
+   the card on slam-icp-loop's graph at the default capacity, bit for bit.
+
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
 thread count, the kNN kernel's at each number of queries a block, the MLP
@@ -98,7 +129,10 @@ fails. ``--profile`` profiles one full-width forward of each configuration
 and prints the tables of those and of the train step on stderr; device time
 by kernel, launches and idle share go into the metrics. ``--kernels`` stops
 after phase 2 and prints the cases and the variants (no last line); ``--icp``
-runs phase 7 alone (no build) and prints its metrics (no last line).
+runs phase 7 alone (no build) and prints its metrics (no last line);
+``--slam`` builds, runs phase 2's SLAM cases and phase 8 alone (with a
+checkpoint of seeded weights instead of phase 5's) and prints its metrics
+(no last line).
 """
 
 from __future__ import annotations
@@ -137,6 +171,7 @@ from pwclonet_pylidarslam_torch.ops.knn import (  # noqa: E402
     _knn_cuda,
     knn,
     knn_plain,
+    masked_sqdist,
     pairwise_sqdist,
 )
 from pwclonet_pylidarslam_torch.ops import mlp as mlp_mod  # noqa: E402
@@ -150,10 +185,16 @@ from pwclonet_pylidarslam_torch.slam.deep_odometry import (  # noqa: E402
 )
 from pwclonet_pylidarslam_torch.evaluation import metrics as odo_metrics  # noqa: E402
 from pwclonet_pylidarslam_torch.slam import icp_odometry as icp  # noqa: E402
+from pwclonet_pylidarslam_torch.core import se3  # noqa: E402
+from pwclonet_pylidarslam_torch.core.registration import planar_to_pose, register_bev  # noqa: E402
+from pwclonet_pylidarslam_torch.evaluation.results import read_poses_txt  # noqa: E402
+from pwclonet_pylidarslam_torch.slam import backend, drift_injection, loop_closure  # noqa: E402
+from pwclonet_pylidarslam_torch.slam import pipeline, runner as runner_mod  # noqa: E402
 from pwclonet_pylidarslam_torch.train import state as tstate  # noqa: E402
 from pwclonet_pylidarslam_torch.train.fast_lane import run_fast_lane_recipe  # noqa: E402
 from pwclonet_pylidarslam_torch.train.losses import pwclonet_loss  # noqa: E402
 from pwclonet_pylidarslam_torch.train.trainer import PWCLONetTrainer, TrainerConfig  # noqa: E402
+import run_slam_torch  # noqa: E402
 import train_net_torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -198,6 +239,10 @@ KERNELS = {
             "pwclonet_pylidarslam_tpu/ops/pallas/fps_kernel.py:116"),
     "knn": ("pwclonet_pylidarslam_torch/csrc/knn.cu",
             "pwclonet_pylidarslam_tpu/ops/pallas/knn_kernel.py:103"),
+    # the same kernel with masks: loop closure's refine (the reference's
+    # masked calls never reach Pallas; its kernel is the TPU kNN's port)
+    "knn_masked": ("pwclonet_pylidarslam_torch/csrc/knn.cu",
+                   "pwclonet_pylidarslam_tpu/ops/pallas/knn_kernel.py:103"),
     "gather": ("pwclonet_pylidarslam_torch/csrc/gather.cu",
                "pwclonet_pylidarslam_tpu/ops/pallas/gather_kernel.py:58"),
     "scatter_add": ("pwclonet_pylidarslam_torch/csrc/scatter_add.cu",
@@ -1293,6 +1338,490 @@ def icp_phase() -> dict:
           "ICP path launched none of the point-op kernels (plain PyTorch)")
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 8: SLAM, loop closure and the pose-graph back end
+# ---------------------------------------------------------------------------
+
+# the there-and-back world of the reference's drift scenario
+# (slam/drift_injection.py::run_drift_scenario), at the front ends' 8192 points
+SLAM_FRAMES = 80
+# config/kitti_loop_backend.yaml and config/kitti_pwclonet_backend.yaml keep
+# LoopClosureConfig()'s widths (2048 points a frame, 16,384 a submap, 0.5 m
+# sampling, a 256-pixel BEV at 0.5 m, 8 refine iterations, confidence 2.0,
+# RMSE 0.6), the back end's capacity (8192 / 16384 / 256) and PGOConfig();
+# reduced: the temporal gates, to the drift scenario's (KITTI's
+# min_id_distance of 200 needs more than 250 frames)
+SLAM_LOOP_REDUCED = dict(submap_size=6, overlap=2, min_id_distance=20, max_distance=30.0)
+SLAM_CARD_CPU_ATOL = 1e-4  # m / rad: the same ops, other reduction orders
+PGO_COST_RTOL = 1e-3
+SLAM_PROFILE_FRAMES = 4  # one submap period: a search and, where found, an optimization
+# The drift scenario's absolute gate, final_on < 0.5 m, is decided by its
+# first ICP step (identity prior, 1.6 m of motion), which no loop constraint
+# observes (the first submap's mid frame is frame 3). That step lands short
+# on many inputs, in the reference too, and which ones depends on how the
+# scan's spherical projection rounds (atan2, asin, the range). Over its
+# scans moved by -12..12 float32 ulp the reference's final_on is 0.5 m or
+# more on 11 of 25 (at most 0.925 m). With that projection taken in float64
+# (the port's first step with it equals the card's on 10 of the 25 inputs),
+# its first step lands short on 21 of 25, as the card's does, and final_on
+# is 0.5 m or more on 18 of 25, at most 1.0832 m. So the card's final_on is
+# held to that spread, and the error anchored at frame 1 (what the back end
+# can correct) to 0.5 m. Measured on a CPU by tests/drift_nudges.py.
+DRIFT_REFERENCE_SPREAD = 1.0832  # m
+DRIFT_ANCHOR = 1
+
+
+class _Frames:
+    """A sequence source for ``SLAMRunner``."""
+
+    def __init__(self, scans: np.ndarray, gt: np.ndarray):
+        self.scans, self.gt = scans, gt
+
+    def __len__(self):
+        return len(self.scans)
+
+    def scan(self, idx):
+        return self.scans[idx]
+
+    def ground_truth(self):
+        return self.gt
+
+
+def slam_sequence(num_points: int = 8192):
+    return generate_sequence(SyntheticSequenceConfig(
+        n_frames=SLAM_FRAMES, trajectory="there_and_back", speed=1.6, seed=5,
+        num_points=num_points))
+
+
+def slam_config(**kw) -> pipeline.SLAMConfig:
+    return pipeline.SLAMConfig(
+        odometry=icp.ICPConfig(num_points=8192), with_loop_closure=True,
+        loop_closure=loop_closure.LoopClosureConfig(**SLAM_LOOP_REDUCED), with_backend=True, **kw)
+
+
+def masked_knn_case(query, ref, k, qmask, rmask, what: str) -> dict:
+    d, i = knn(query, ref, k, qmask, rmask)
+    pd, pi = knn_plain(query, ref, k, qmask, rmask)
+    b, s, _ = query.shape
+    n = ref.shape[1]
+    share = 0.0 if rmask is None else float((rmask <= 0).float().mean())
+    name = f"B={b} S={s} N={n} k={k} ({what}; {100 * share:.0f} % of refs masked)"
+    err = (d - pd).abs().max().item()
+    check(torch.equal(d, pd), f"masked knn {name}: distances equal to plain to the bit")
+    check(torch.equal(i, pi), f"masked knn {name}: indices equal to plain "
+          f"({int((i != pi).sum())} positions differ)")
+    # per pair as unmasked (10 operations); masks read once
+    nbytes = (b * s * 3 + b * n * 3) * 4 + b * (s + n) + b * s * k * 8
+    bnd, by = bound_ms(nbytes, 10.0 * b * s * n)
+    full = masked_sqdist(query, ref, rmask)
+    return {
+        "shape": name, "max_abs_err": err, "bound_ms": bnd, "bound_by": by,
+        "distance_evaluations": b * s * n,
+        # library: torch.topk on the ready masked distances (not timed)
+        **kernel_times(lambda: knn(query, ref, k, qmask, rmask),
+                       lambda: knn_plain(query, ref, k, qmask, rmask),
+                       lambda: torch.topk(full, k, dim=-1, largest=False), 20, 2),
+    }
+
+
+def loop_closure_submap(scans: np.ndarray, gt: np.ndarray):
+    """The first submap of ``LoopClosureConfig()``'s widths over eight
+    corridor frames (2048 grid-sampled points each, 16,384 a submap): the
+    refine's reference cloud, masked where the grid sampling left padding."""
+    lc = loop_closure.ElevationImageLoopClosure(
+        loop_closure.LoopClosureConfig(submap_size=8, overlap=0))
+    for t in range(8):
+        lc.process_next_frame(scans[t], gt[t])
+    return lc.submaps[0]
+
+
+def masked_knn_cases(sm) -> list:
+    """The masked kNN at the loop-closure refine's shape (a full-width
+    submap ``sm``'s 16,384 points, warped, against the submap with its mask,
+    k=1), then the masks' corner cases: fewer valid refs than k, none,
+    masked queries, k above N."""
+    ref = torch.from_numpy(sm.points).cuda()[None]
+    rmask = torch.from_numpy(sm.mask).cuda()[None]
+    warp = se3.exp(torch.tensor([0.3, -0.2, 0.0, 0.0, 0.0, 0.02], device="cuda"))
+    query = se3.transform(warp[None], ref)
+    cases = [masked_knn_case(query, ref, 1, None, rmask, "loop-closure refine")]
+    few = torch.ones(2, 300, device="cuda")
+    few[0] = 0.0
+    few[0, [3, 77, 150]] = 1.0  # sample 0: three valid refs for k = 8
+    few[1] = 0.0  # sample 1: none
+    q2, r2 = query[:, :400].reshape(2, 200, 3), ref[:, 1000:1600].reshape(2, 300, 3)
+    cases.append(masked_knn_case(q2, r2, 8, None, few, "fewer valid refs than k, and none"))
+    qm = (torch.arange(400, device="cuda").reshape(2, 200) % 3 != 0).float()
+    cases.append(masked_knn_case(q2, r2, 8, qm, torch.ones_like(few), "masked queries"))
+    d, i = knn(q2, r2[:, :5].contiguous(), 8, qm, few[:, :5].contiguous())
+    cpu = knn(q2.cpu(), r2[:, :5].cpu(), 8, qm.cpu(), few[:, :5].cpu())
+    check(torch.equal(d.cpu(), cpu[0]) and torch.equal(i.cpu(), cpu[1]),
+          "masked knn k=8 above N=5 with masks: padded as the CPU pads it")
+    return cases
+
+
+def full_pose_graph(nodes: int = 8192, edges: int = 16384, priors: int = 256):
+    """A graph that fills the back end's default capacity (a chain of poses,
+    random edges across it, priors): its accumulation index has
+    2 x 16,384 + 256 = 33,024 entries into 8,192 rows."""
+    rng = np.random.default_rng(0)
+    b = backend.PoseGraphBuilder(nodes, edges, priors)
+    for t in range(nodes):
+        pose = np.eye(4)
+        pose[0, 3] = t
+        b.add_node(pose)
+    for t in range(nodes - 1):
+        b.add_odometry_edge(t, np.linalg.inv(b.poses[t]) @ b.poses[t + 1])
+    for i, j in rng.integers(0, nodes, size=(edges - nodes + 1, 2)):
+        b.add_loop_edge(int(i), int(j), np.linalg.inv(b.poses[i]) @ b.poses[j])
+    for i in rng.integers(0, nodes, size=priors):
+        b.add_absolute_edge(int(i), b.poses[i])
+    return b.to_device()
+
+
+def backend_scatter_cases() -> list:
+    """The back end's scatter-add at the default capacity, full (V = 8192,
+    M = 33,024), C = 6 (CG matvec, gradient) and C = 36 (6x6 blocks)."""
+    graph = full_pose_graph()
+    idx = backend._Accumulator(graph).idx[..., None]  # (1, M, 1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    return [scatter_case(gen, idx, 8192, c, f"pose-graph back end, {what}")
+            for c, what in ((6, "CG matvec and gradient"), (36, "6x6 diagonal blocks"))]
+
+
+def refine_gather_case(sm) -> dict:
+    """The refine's gather of the matched points in submap ``sm``: (1, 16384,
+    3) by (1, 16384)."""
+    ref = torch.from_numpy(sm.points).cuda()[None]
+    rmask = torch.from_numpy(sm.mask).cuda()[None]
+    _, idx = knn(ref + 0.1, ref, 1, ref_mask=rmask)
+    return gather_case(ref, idx[..., 0].contiguous())
+
+
+def cg_launches(ran: int, config: backend.PGOConfig) -> int:
+    """CG iterations the back end launches in a Gauss-Newton iteration whose
+    CG ran ``ran`` (the device's own count of unfrozen iterations): whole
+    chunks of ``CG_CHECK_EVERY``, at least one, up to the chunk in which the
+    exit held, at most ``config.cg_iterations``."""
+    chunk = backend.CG_CHECK_EVERY
+    return min(config.cg_iterations, max(1, -(-ran // chunk)) * chunk)
+
+
+def expected_slam_launches(slam, forwards: int, fused: bool) -> dict:
+    """Launches a SLAM run must have made: the front end's per forward, 8
+    masked kNN and 8 gathers a refinement, and a scatter-add for each
+    back-end accumulation (2 a Gauss-Newton iteration, 1 a CG iteration
+    launched, from :func:`cg_launches`)."""
+    out = {name: n * forwards for name, n in LAUNCHES_PER_FORWARD[fused].items()}
+    refine = slam.loop_closure.stats.refinements * slam.loop_closure.config.icp_iterations
+    out["knn"] += refine
+    out["gather"] += refine
+    for o in slam.optimizations:
+        launched = [cg_launches(ran, slam.config.pgo) for ran in o["stats"].cg_iterations]
+        check(o["stats"].cg_launched == sum(launched),
+              f"back end: {o['stats'].cg_launched} CG iterations launched, as the chunks of "
+              f"{backend.CG_CHECK_EVERY} give for {o['stats'].cg_iterations}")
+        out["scatter_add"] += sum(2 + n for n in launched)
+    return out
+
+
+def profile_once(fn):
+    """The device events of one run of ``fn()``. The device's activity only:
+    a window holds ~225,000 kernels, and the host's op events would double
+    what the profiler must parse."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def slam_profile(cfg, make_odometry, scans: np.ndarray, window_end: int) -> dict:
+    """A second drive of the same pipeline, profiled over the
+    ``SLAM_PROFILE_FRAMES`` frames that end at ``window_end``."""
+    slam = pipeline.SLAM(cfg, odometry=make_odometry())
+    slam.init()
+    w0 = max(0, window_end - SLAM_PROFILE_FRAMES)
+    for t in range(w0):
+        slam.process_next_frame(scans[t])
+    opts = len(slam.optimizations)
+    subs = slam.loop_closure.stats.submaps
+    profile_once(lambda: torch.ones(8, device="cuda").sum())  # the tracer warm
+    device = profile_once(lambda: [slam.process_next_frame(scans[t])
+                                   for t in range(w0, window_end)])
+    prof = summarize_device_events(device)
+    frames = window_end - w0
+    return {"window_frames": [w0, window_end],
+            "window_optimizations": len(slam.optimizations) - opts,
+            "window_submaps": slam.loop_closure.stats.submaps - subs,
+            "device_ms_per_frame": prof["device_ms"] / frames,
+            "launches_per_frame": prof["device_launches"] / frames,
+            "idle_share": prof["idle_share"],
+            "device_ms_by_port_kernel": prof["device_ms_by_port_kernel"],
+            "top_kernels": prof["top_kernels"][:8]}
+
+
+def slam_drive(label: str, cfg, make_odometry, scans: np.ndarray, gt: np.ndarray,
+               log_dir: str, fused=None) -> dict:
+    """Drive one SLAM composition through ``SLAMRunner`` with the launch
+    counters zeroed just before and read just after; check the launch
+    counts, the poses and the result files; then profile a window."""
+    runner = runner_mod.SLAMRunner(runner_mod.SLAMRunnerConfig(
+        slam=cfg, log_dir=log_dir, fail_on_error=True), odometry=make_odometry())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    md = runner.run({label: _Frames(scans, gt)})[label]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    slam = runner.pipelines[label]
+    forwards = len(scans) - 1 if fused is not None else 0
+    expected = expected_slam_launches(slam, forwards, bool(fused))
+    check(counts == expected, f"{label}: launches {counts} are the path's {expected}")
+    if fused is None:
+        # ICP closes loops here; the deep front end's untrained weights do not
+        # (its trajectory leaves the 30 m gate), and 0 refinements is then exact
+        check(counts["knn"] > 0 and counts["gather"] > 0 and counts["scatter_add"] > 0,
+              f"{label}: the masked kNN, the refine's gather and the back end's scatter-add ran")
+    poses = slam.absolute_poses()
+    check(poses.shape == (len(scans), 4, 4) and is_se3(poses), f"{label}: poses finite SE(3)")
+    for name in (f"{label}.poses.txt", f"{label}_gt.poses.txt", "metrics.yaml"):
+        check(Path(log_dir, name).exists(), f"{label}: {name} written")
+    lcs = slam.loop_closure.stats
+    opts = slam.optimizations
+    odo_reads = (sum(slam.odometry.host_reads) if hasattr(slam.odometry, "host_reads")
+                 else forwards)  # the deep front end fetches each pose once
+    pgo_reads = sum(o["stats"].host_reads + 1 for o in opts)  # + the resync's read
+    err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+    out = {
+        "seconds": seconds, "frames": len(scans),
+        "ms_per_frame_median": 1e3 * statistics.median(slam.elapsed),
+        "ms_per_frame_mean": 1e3 * statistics.mean(slam.elapsed),
+        "submaps": lcs.submaps, "candidates": lcs.candidates, "refinements": lcs.refinements,
+        "constraints": lcs.accepted,
+        "ms_per_submap_median": 1e3 * statistics.median(lcs.submap_seconds),
+        "ms_per_submap_max": 1e3 * max(lcs.submap_seconds),
+        "optimizations": len(opts),
+        "ms_per_optimization": [1e3 * o["seconds"] for o in opts],
+        "gn_iterations": [o["stats"].gn_iterations for o in opts],
+        "cg_iterations": [o["stats"].cg_iterations for o in opts],
+        "cg_launched": [o["stats"].cg_launched for o in opts],
+        "host_reads_per_optimization": [o["stats"].host_reads + 1 for o in opts],
+        "host_reads_per_frame": (odo_reads + lcs.host_reads + pgo_reads) / len(scans),
+        "host_reads": {"odometry": odo_reads, "loop_closure": lcs.host_reads, "backend": pgo_reads},
+        "launches": counts, "peak_memory_bytes": peak,
+        "ate_m": float(err.mean()), "final_error_m": float(err[-10:].mean()),
+        "metrics": {k: v for k, v in (md or {}).items() if isinstance(v, float)},
+    }
+    window_end = opts[0]["nodes"] if opts else len(scans)
+    out["profile"] = slam_profile(cfg, make_odometry, scans, window_end)
+    out["_slam"] = slam
+    log(f"{label}: {out['ms_per_frame_median']:.1f} ms a frame (median), "
+        f"{out['ms_per_submap_median']:.1f} ms a submap, {len(opts)} optimizations "
+        f"({[round(x, 1) for x in out['ms_per_optimization']]} ms, GN {out['gn_iterations']}), "
+        f"{lcs.accepted} constraints of {lcs.refinements} refinements, "
+        f"{out['host_reads_per_frame']:.2f} host reads a frame, device "
+        f"{out['profile']['device_ms_per_frame']:.2f} ms and "
+        f"{out['profile']['launches_per_frame']:.0f} launches a frame, idle "
+        f"{out['profile']['idle_share']:.3f}, peak {peak / 2**20:.0f} MiB, "
+        f"final error {out['final_error_m']:.3f} m")
+    return out
+
+
+def slam_card_vs_cpu(lc, builder) -> dict:
+    """``_refine_icp`` on a submap pair that closed a loop (the card's
+    registration as the start) and ``optimize`` on a 200-node circle with
+    loop edges, each on the card and on the CPU from one state; then the
+    graph of ``builder`` (slam-icp-loop's, at the default capacity) twice
+    on the card, bit for bit."""
+    c = lc.constraints[0]
+    old = next(s for s in lc.submaps if s.mid_frame_id == c.frame_i)
+    new = next(s for s in lc.submaps if s.mid_frame_id == c.frame_j)
+    args = [torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            for x in (new.points, new.mask, old.points, old.mask)]
+    cuda_args = [a.cuda() for a in args]
+    reg = register_bev(cuda_args[2], cuda_args[3], cuda_args[0], cuda_args[1], lc.config.bev)
+    init = planar_to_pose(reg).cpu()
+    with icp.full_fp32_products():
+        card = loop_closure._refine_icp(lc.config, *cuda_args, init.cuda())
+    cpu = loop_closure._refine_icp(lc.config, *args, init)
+    pa, pb = card[0].cpu().numpy(), cpu[0].numpy()
+    refine = {"shape": f"{new.points.shape[0]} against {old.points.shape[0]} points",
+              "trans_gap_m": float(np.abs(pa[:3, 3] - pb[:3, 3]).max()),
+              "rot_gap_rad": icp_rotation_gap(pa, pb),
+              "rmse": [float(card[1]), float(cpu[1])]}
+    check(refine["trans_gap_m"] <= SLAM_CARD_CPU_ATOL and refine["rot_gap_rad"] <= SLAM_CARD_CPU_ATOL,
+          f"refine card vs CPU: {refine['trans_gap_m']:.3g} m, {refine['rot_gap_rad']:.3g} rad "
+          f"<= {SLAM_CARD_CPU_ATOL}; RMSE {refine['rmse']}")
+    check(abs(refine["rmse"][0] - refine["rmse"][1]) <= SLAM_CARD_CPU_ATOL,
+          "refine card vs CPU: RMSE within 1e-4")
+
+    b = circle_graph(capacity=(256, 512, 8))
+    cfg = backend.PGOConfig()
+    graphs = {"card": b.to_device(), "cpu": b.to_device(device="cpu")}
+    outs = {k: backend.optimize(g, cfg).poses.cpu().numpy() for k, g in graphs.items()}
+    pose_gap = float(np.abs(outs["card"] - outs["cpu"]).max())
+    cost = {k: (float(backend.graph_cost(g)), float(backend.graph_cost(g, torch.from_numpy(
+        outs[k]).to(g.poses.device)))) for k, g in graphs.items()}
+    factor = {k: before / after for k, (before, after) in cost.items()}
+    check(pose_gap <= SLAM_CARD_CPU_ATOL, f"optimize card vs CPU, 200-node circle: pose gap "
+          f"{pose_gap:.3g} <= {SLAM_CARD_CPU_ATOL}")
+    check(abs(factor["card"] - factor["cpu"]) <= PGO_COST_RTOL * factor["cpu"],
+          f"optimize: the cost falls by {factor['card']:.6g} on the card and {factor['cpu']:.6g} "
+          f"on the CPU (within {PGO_COST_RTOL} relative)")
+    full = builder.to_device()
+    runs, times, stats = [], [], []
+    for _ in range(2):
+        st = backend.PGOStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(backend.optimize(full, cfg, st).poses)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        stats.append(st)
+    check(torch.equal(runs[0], runs[1]), f"optimize slam-icp-loop's graph ({len(builder.poses)} "
+          "nodes, default capacity) twice on the card: bit-identical poses")
+    return {"refine": refine, "pgo_pose_gap": pose_gap, "pgo_cost_factor": factor,
+            "pgo_twice_nodes": len(builder.poses), "pgo_twice_ms": times,
+            "pgo_twice_gn": stats[0].gn_iterations, "pgo_twice_cg": stats[0].cg_iterations,
+            "pgo_twice_host_reads": stats[0].host_reads}
+
+
+def circle_graph(n: int = 200, radius: float = 20.0, capacity=(256, 512, 8)):
+    """tests/pgo_fixtures.py's circle with drifted odometry (noise 0.02 m /
+    0.002 rad), a loop edge from the last node to the first and four across
+    the circle."""
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    for t in range(n):
+        a = 2 * np.pi * t / n
+        gt[t, :3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        gt[t, :3, 3] = [radius * np.sin(a), radius * (1 - np.cos(a)), 0]
+    rng = np.random.default_rng(0)
+    b = backend.PoseGraphBuilder(*capacity)
+    pose = gt[0]
+    b.add_node(pose)
+    for t in range(1, n):
+        noise = np.concatenate([rng.normal(scale=0.02, size=3), rng.normal(scale=0.002, size=3)])
+        rel = np.linalg.inv(gt[t - 1]) @ gt[t] @ se3.exp(torch.from_numpy(noise)).numpy()
+        pose = pose @ rel
+        b.add_node(pose)
+        b.add_odometry_edge(t - 1, rel)
+    for i, j in ((0, n - 1), (0, n // 2), (n // 8, 5 * n // 8), (n // 4, 3 * n // 4),
+                 (3 * n // 8, 7 * n // 8)):
+        b.add_loop_edge(i, j, np.linalg.inv(gt[i]) @ gt[j])
+    return b
+
+
+def drift_phase() -> dict:
+    """The reference's drift scenario on the card, backend off and on, held
+    to tests/test_pipeline.py::test_loop_backend_reduces_drift's gates; the
+    absolute one to the reference's spread (DRIFT_REFERENCE_SPREAD), and the
+    error anchored at frame 1 to 0.5 m."""
+    t0 = time.perf_counter()
+    slam_off, err_off = drift_injection.run_drift_scenario(with_backend=False)
+    slam_on, err_on = drift_injection.run_drift_scenario(with_backend=True)
+    gt = drift_injection.scenario_ground_truth()
+    anchored = {label: drift_injection.anchored_errors(slam.absolute_poses(), gt, DRIFT_ANCHOR)
+                for label, slam in (("on", slam_on), ("off", slam_off))}
+    final_off, final_on = float(err_off[-10:].mean()), float(err_on[-10:].mean())
+    final_on_anchored = float(anchored["on"][-10:].mean())
+    n_on = len(slam_on.loop_closure.constraints)
+    log(f"drift scenario: {n_on} loop constraints; final 10-frame error {final_on:.3f} m with "
+        f"the back end ({final_on_anchored:.3f} m anchored at frame {DRIFT_ANCHOR}; the first "
+        f"step's error {err_on[1]:.3f} m), {final_off:.3f} m without")
+    log(f"drift scenario: the reference's absolute gate as it states it, final_on < 0.5 m, is "
+        f"{'met' if final_on < 0.5 else 'not met'} ({final_on:.3f} m)")
+    check(n_on >= 1, "drift scenario: at least one loop constraint")
+    check(final_on < 0.5 * final_off, "drift scenario: final_on < 0.5 x final_off")
+    check(final_off > 1.0, "drift scenario: final_off > 1.0 m (the scenario drifts)")
+    check(final_on <= DRIFT_REFERENCE_SPREAD,
+          f"drift scenario: final_on <= {DRIFT_REFERENCE_SPREAD} m, the reference's largest over "
+          f"its nudged scans, their projection in float64")
+    check(final_on_anchored < 0.5,
+          f"drift scenario: final_on < 0.5 m, anchored at frame {DRIFT_ANCHOR}")
+    return {"final_on_m": final_on, "final_off_m": final_off, "constraints_on": n_on,
+            "final_on_anchored_m": final_on_anchored,
+            "final_off_anchored_m": float(anchored["off"][-10:].mean()),
+            "error_on_m": err_on.tolist(), "error_off_m": err_off.tolist(),
+            "constraints_off": len(slam_off.loop_closure.constraints),
+            "optimizations_on": len(slam_on.optimizations),
+            "seconds": time.perf_counter() - t0, "loop_closure": slam_on.loop_closure}
+
+
+def slam_cli_drive(ckpt_dir: str, out_dir: str) -> dict:
+    """``run_slam_torch.py`` at config/kitti_pwclonet_backend.yaml on the
+    80-frame synthetic sequence: the KITTI gates find no loop in 80 frames,
+    so the drive runs the front end, the frames' sampling and one submap."""
+    argv = ["config=kitti_pwclonet_backend", "dataset=synthetic", "sequences=5",
+            f"synthetic_frames={SLAM_FRAMES}", "synthetic_trajectory=there_and_back",
+            f"checkpoint_dir={ckpt_dir}", f"log_dir={out_dir}"]
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run_slam_torch.main(argv)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    forwards = SLAM_FRAMES - 1
+    expected = {name: n * forwards for name, n in LAUNCHES_PER_FORWARD[True].items()}
+    check(rc == 0, "run_slam_torch.py config=kitti_pwclonet_backend exits 0")
+    check(counts == expected, f"run_slam_torch.py: launches {counts} are the fused front end's "
+          f"per-frame counts x {forwards} forwards")
+    poses = read_poses_txt(str(Path(out_dir, "synth05.poses.txt")))
+    check(poses.shape == (SLAM_FRAMES, 4, 4) and is_se3(poses),
+          "run_slam_torch.py: poses written, finite SE(3)")
+    check(Path(out_dir, "metrics.yaml").exists() and Path(out_dir, "config.yaml").exists(),
+          "run_slam_torch.py: metrics.yaml and config.yaml written")
+    return {"argv": argv, "seconds": time.perf_counter() - t0, "launches": counts}
+
+
+def slam_phase(ckpt_dir: str) -> dict:
+    """Phase 8: the card against the CPU, the drift scenario, then the two
+    SLAM compositions at full width through SLAMRunner, and the CLI."""
+    t0 = time.perf_counter()
+    out = {}
+    log("phase 8: the drift scenario, backend off and on")
+    drift = drift_phase()
+    log(f"generating the {SLAM_FRAMES}-frame there-and-back sequence at 8192 points")
+    scans, gt = slam_sequence()
+    fused_cfg = DeepOdometryConfig(model=PWCLONetConfig(fused_eval=True))
+    ckpt = str(sorted(Path(ckpt_dir, "checkpoints").glob("step_*.pt"))[-1])
+    with tempfile.TemporaryDirectory() as work:
+        log("phase 8: slam-icp-loop at full width through SLAMRunner")
+        out["slam-icp-loop"] = slam_drive(
+            "slam-icp-loop", slam_config(), lambda: icp.ICPOdometry(icp.ICPConfig(num_points=8192)),
+            scans, gt, str(Path(work, "icp")))
+        log("phase 8: slam-pwclonet-loop (the fused front end from the checkpoint)")
+        out["slam-pwclonet-loop"] = slam_drive(
+            "slam-pwclonet-loop", slam_config(), lambda: PWCLONetOdometry(ckpt, fused_cfg),
+            scans, gt, str(Path(work, "pwclonet")), fused=True)
+        log("phase 8: run_slam_torch.py config=kitti_pwclonet_backend")
+        out["cli"] = slam_cli_drive(ckpt_dir, str(Path(work, "cli")))
+    log("phase 8: the card against the CPU from one state")
+    # a submap pair of the full-width run that closed a loop, else the drift
+    # scenario's
+    icp_slam = out["slam-icp-loop"].pop("_slam")
+    out["slam-pwclonet-loop"].pop("_slam")
+    drift_lc = drift.pop("loop_closure")
+    lc = icp_slam.loop_closure if icp_slam.loop_closure.constraints else drift_lc
+    out["card_vs_cpu"] = slam_card_vs_cpu(lc, icp_slam.builder)
+    out["drift"] = drift
+    out["seconds"] = time.perf_counter() - t0
+    out["configs"] = {
+        "slam-icp-loop": "config/kitti_loop_backend.yaml: ICPConfig() at 8192 points, "
+                         "LoopClosureConfig() widths, back end 8192/16384/256, PGOConfig()",
+        "slam-pwclonet-loop": "config/kitti_pwclonet_backend.yaml: PWCLONetConfig(fused_eval=True) "
+                              "at 8192 points from the phase-5 checkpoint, the same loop closure "
+                              "and back end",
+        "reduced": f"{SLAM_FRAMES} frames (there and back, speed 1.6, seed 5); "
+                   f"loop gates {SLAM_LOOP_REDUCED} (KITTI: 50 / 20 / 200 / 100)",
+    }
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1311,6 +1840,10 @@ def main() -> int:
     parser.add_argument("--kernels", action="store_true",
                         help="stop after phase 2: build, each kernel against its plain version, "
                              "and the FPS, kNN and MLP launch variants; prints no ok line")
+    parser.add_argument("--slam", action="store_true",
+                        help="build, the SLAM kernel cases of phase 2, then phase 8 alone with a "
+                             "checkpoint of seeded random weights; prints its metrics and no ok "
+                             "line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -1350,8 +1883,27 @@ def main() -> int:
         np.stack([odos["fused"]._prepare(s) for s in scans[:TRAIN_BATCH]])).cuda()
     scan0, scan1 = frames[0:1], frames[1:2]
 
+    if args.slam:
+        log("phase 2, SLAM cases: the masked kNN, the refine's gather, the back end's scatter-add")
+        submap = loop_closure_submap(scans, _gt)
+        cases = {"knn_masked": masked_knn_cases(submap), "gather": [refine_gather_case(submap)],
+                 "scatter_add": backend_scatter_cases()}
+        with tempfile.TemporaryDirectory() as log_dir:
+            PWCLONetTrainer(TrainerConfig(
+                train=tstate.TrainConfig(model=PWCLONetConfig(fused_eval=True)),
+                log_dir=log_dir)).save_checkpoint("seeded")
+            slam = slam_phase(log_dir)
+        print(card_line())
+        print(json.dumps({"cases": cases}))
+        print(json.dumps({"slam": slam}))
+        return 0
+
     log("phase 2: kernels against their plain versions")
     cases, variants = kernel_phase(scan0, scan1, frames)
+    submap = loop_closure_submap(scans, _gt)
+    cases["knn_masked"] = masked_knn_cases(submap)
+    cases["gather"].append(refine_gather_case(submap))
+    cases["scatter_add"] += backend_scatter_cases()
     if args.kernels:
         print(card_line())
         print(json.dumps({"cases": cases}))
@@ -1374,8 +1926,8 @@ def main() -> int:
     bfloat16_forward(scan1, scan0)
 
     log("phase 5: training at full width, then the learning recipe")
-    with tempfile.TemporaryDirectory() as log_dir:
-        train = train_path_phase(scans, log_dir)
+    train_dir = tempfile.TemporaryDirectory()  # its checkpoint drives phase 8
+    train = train_path_phase(scans, train_dir.name)
     learning = learning_phase()
 
     log("phase 6: times")
@@ -1389,16 +1941,28 @@ def main() -> int:
     log("phase 7: classic ICP odometry at full width, projective and voxel")
     icp_metrics = icp_phase()
 
+    log("phase 8: SLAM, loop closure and the pose-graph back end")
+    slam = slam_phase(train_dir.name)
+    train_dir.cleanup()
+
     kernels = []
+    slam_icp = slam["slam-icp-loop"]["launches"]
+    slam_deep = slam["slam-pwclonet-loop"]["launches"]
     for name, (source, replaces) in KERNELS.items():
         head = cases[name][0]
+        kernel = "knn" if name == "knn_masked" else name
+        # of the path that runs the kernel: the fused eval drive; the
+        # training drive for the gather's backward; slam-icp-loop, whose kNN
+        # launches are all masked, for the masked kNN
+        path = {"scatter_add": train["launches"], "knn_masked": slam_icp}.get(
+            name, main["fused"]["launches"])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # of the path that runs the kernel: the fused eval drive, or the
-            # training drive for the gather's backward
-            "launches": (train if name == "scatter_add" else main["fused"])["launches"][name],
-            "launches_unfused_path": main["unfused"]["launches"][name],
-            "launches_train_path": train["launches"][name],
+            "launches": path[kernel],
+            "launches_unfused_path": main["unfused"]["launches"][kernel],
+            "launches_train_path": train["launches"][kernel],
+            "launches_slam_icp_path": slam_icp[kernel],
+            "launches_slam_pwclonet_path": slam_deep[kernel],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
@@ -1418,7 +1982,8 @@ def main() -> int:
         "fused_vs_unfused_max_pose_gap": fused_gap,
         **{label: {**main[label], **times[label]} for label in odos},
         "train": {**train, **train_times}, "learning_recipe": learning,
-        "profile": profiles, "icp": icp_metrics, "total_s": time.perf_counter() - t_start,
+        "profile": profiles, "icp": icp_metrics, "slam": slam,
+        "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
     print(json.dumps({"metrics": metrics}))
@@ -1433,9 +1998,15 @@ def main() -> int:
     finite += [icp_metrics[mode][key] for mode in ICP_CONFIGS
                for key in ("process_next_frame_ms_median", "process_sequence_ms_per_frame",
                            "device_ms_per_frame", "ate_m_per_frame", "final_drift_m")]
+    for label in ("slam-icp-loop", "slam-pwclonet-loop"):
+        m = slam[label]
+        finite += [m["ms_per_frame_median"], m["ms_per_submap_median"], m["host_reads_per_frame"],
+                   m["profile"]["device_ms_per_frame"], m["final_error_m"]]
+        finite += m["ms_per_optimization"]
+    finite += [slam["drift"]["final_on_m"], slam["drift"]["final_off_m"]]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
-    check(len(kernels) == 6 and all(k["launches"] > 0 for k in kernels),
-          "six kernels, each launched on its main path")
+    check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
+          "six kernels and the masked kNN, each launched on its main path")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

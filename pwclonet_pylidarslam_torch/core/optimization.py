@@ -227,7 +227,8 @@ def gauss_newton_se3(
         pose = se3.exp(dx) @ pose
         converged = converged | (torch.linalg.norm(dx, dim=-1) < norm_stop_criterion)
         it += 1
-        if bool(converged.all()):
+        # the flag is read only where it can end the loop early
+        if it < max_iters and bool(converged.all()):
             break
     res, _ = residual_jac_fn(pose)
     w = robust_weights(res, scheme, sigma, eps, match_distances)

@@ -33,6 +33,16 @@
 // cross term is (qx*rx + qy*ry) + qz*rz in full fp32, no tensor cores, as the
 // plain PyTorch version computes it, so distances and indices equal the
 // plain version's to the bit.
+//
+// Masks (both optional, one byte a point, nonzero = valid), with the
+// semantics of ops/knn.py::knn: a masked reference point takes distance
+// 1e10, so it enters the key list as (bits(1e10f) << 32) | index and is
+// picked only after every valid point, lower index first; where the output
+// is written, every slot whose distance is >= 5e9 takes slot 0's key, so a
+// query with fewer than k valid refs repeats its nearest valid hit (and one
+// with none gets 1e10 at index 0). A masked query skips the search and
+// writes index 0 and distance 0. Keys and tie order are those of the
+// unmasked kernel.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +56,8 @@ constexpr int kUnroll = 4;      // candidates per lane between two votes
 constexpr int kQueue = 64;      // at most 31 waiting + 32 new
 constexpr unsigned kFull = 0xffffffffu;
 constexpr Key kNone = ~0ull;    // above every real key
+constexpr float kBig = 1e10f;   // the distance of a masked reference point
+constexpr float kInvalid = 5e9f;  // a slot at or above this has no valid ref
 
 __device__ __forceinline__ Key key_min(Key a, Key b) { return a < b ? a : b; }
 __device__ __forceinline__ Key key_max(Key a, Key b) { return a < b ? b : a; }
@@ -79,9 +91,11 @@ __device__ __forceinline__ Key merge_across_warp(Key best, Key cand, int lane) {
 }
 
 __global__ void __launch_bounds__(kMaxWarps * 32)
-knn_kernel(const float* __restrict__ query, const float* __restrict__ ref, int s, int n,
-           int k, float* __restrict__ out_d, int* __restrict__ out_i) {
+knn_kernel(const float* __restrict__ query, const float* __restrict__ ref,
+           const unsigned char* __restrict__ qmask, const unsigned char* __restrict__ rmask,
+           int s, int n, int k, float* __restrict__ out_d, int* __restrict__ out_i) {
   __shared__ float4 tile[kTile];
+  __shared__ unsigned char tile_ok[kTile];  // read only when rmask is given
   __shared__ Key queue[kMaxWarps][kQueue];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -89,7 +103,10 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ ref, int s
   const int b = blockIdx.y;
   const int q = blockIdx.x * nwarps + warp;
   const bool active = q < s;  // the same for every lane of a warp
+  // a masked query searches nothing
+  const bool search = active && (qmask == nullptr || qmask[static_cast<size_t>(b) * s + q] != 0);
   const float* rb = ref + static_cast<size_t>(b) * n * 3;
+  const unsigned char* rmb = rmask == nullptr ? nullptr : rmask + static_cast<size_t>(b) * n;
 
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (active) {
@@ -113,9 +130,10 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ ref, int s
       const float x = rp[0], y = rp[1], z = rp[2];
       tile[t] = make_float4(
           x, y, z, __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+      if (rmb != nullptr) tile_ok[t] = rmb[base + t] != 0;
     }
     __syncthreads();
-    if (!active) continue;
+    if (!search) continue;
     for (int t0 = 0; t0 < cnt; t0 += 32 * kUnroll) {
       Key key[kUnroll];
       bool some = false;
@@ -127,7 +145,8 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ ref, int s
           const float4 r = tile[t];
           const float cross =
               __fadd_rn(__fadd_rn(__fmul_rn(qx, r.x), __fmul_rn(qy, r.y)), __fmul_rn(qz, r.z));
-          const float d = fmaxf(__fsub_rn(__fadd_rn(q2, r.w), __fmul_rn(2.f, cross)), 0.f);
+          float d = fmaxf(__fsub_rn(__fadd_rn(q2, r.w), __fmul_rn(2.f, cross)), 0.f);
+          if (rmb != nullptr && !tile_ok[t]) d = kBig;
           // d >= 0: the sign bit is masked so that a -0 orders as +0
           key[u] = (static_cast<Key>(__float_as_uint(d) & 0x7fffffffu) << 32) |
                    static_cast<unsigned>(base + t);
@@ -164,21 +183,35 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ ref, int s
     const Key cand = lane < waiting ? mine[lane] : kNone;
     best = merge_across_warp(best, sort_across_warp(cand, lane), lane);
   }
+  // a slot without a valid ref repeats slot 0, on every call as in the
+  // reference (unmasked, only a distance over 5e9, ~70 km, is touched)
+  const Key first = __shfl_sync(kFull, best, 0);
   if (lane < k) {
+    float d = __uint_as_float(static_cast<unsigned>(best >> 32));
+    int i = static_cast<int>(static_cast<unsigned>(best & 0xffffffffull));
+    if (!search) {
+      d = 0.f;
+      i = 0;
+    } else if (d >= kInvalid) {
+      d = __uint_as_float(static_cast<unsigned>(first >> 32));
+      i = static_cast<int>(static_cast<unsigned>(first & 0xffffffffull));
+    }
     const size_t o = (static_cast<size_t>(b) * s + q) * k + lane;
-    out_d[o] = __uint_as_float(static_cast<unsigned>(best >> 32));
-    out_i[o] = static_cast<int>(static_cast<unsigned>(best & 0xffffffffull));
+    out_d[o] = d;
+    out_i[o] = i;
   }
 }
 
 }  // namespace
 
-// query (B, S, 3) f32, ref (B, N, 3) f32, out_d (B, S, k) f32, out_i (B, S, k) i32.
+// query (B, S, 3) f32, ref (B, N, 3) f32, qmask (B, S) and rmask (B, N) one
+// byte a point or null, out_d (B, S, k) f32, out_i (B, S, k) i32.
 // Takes 1 <= k <= min(N, 32); the caller pads k > N. `warps` is the number of
 // queries a block serves, 1..8, or 0 for the kernel's own choice (the wrapper
 // always passes 0; the other values are there to be timed against it).
-extern "C" int pwclo_knn(const void* query, const void* ref, int b, int s, int n, int k,
-                         void* out_d, void* out_i, int warps, void* stream) {
+extern "C" int pwclo_knn(const void* query, const void* ref, const void* qmask,
+                         const void* rmask, int b, int s, int n, int k, void* out_d,
+                         void* out_i, int warps, void* stream) {
   if (k < 1 || k > 32 || k > n || warps < 0 || warps > kMaxWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -189,7 +222,8 @@ extern "C" int pwclo_knn(const void* query, const void* ref, int b, int s, int n
   }
   const dim3 grid((s + warps - 1) / warps, b);
   knn_kernel<<<grid, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(query), static_cast<const float*>(ref), s, n, k,
+      static_cast<const float*>(query), static_cast<const float*>(ref),
+      static_cast<const unsigned char*>(qmask), static_cast<const unsigned char*>(rmask), s, n, k,
       static_cast<float*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }

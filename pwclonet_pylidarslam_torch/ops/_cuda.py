@@ -49,8 +49,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # points, mask, b, n, npoint, out, cluster, threads, skeleton, stream
     "pwclo_fps": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
-    # query, ref, b, s, n, k, out_d, out_i, warps, stream
-    "pwclo_knn": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
+    # query, ref, query mask, ref mask (null or one byte a point), b, s, n, k,
+    # out_d, out_i, warps, stream
+    "pwclo_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
     # updates, idx, b, n, m, c, tile, scratch, scratch ints, out, stream
     "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P),

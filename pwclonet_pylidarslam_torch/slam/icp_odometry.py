@@ -204,6 +204,11 @@ class StepStats:
         self.host_reads += 1
         return t.tolist()
 
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        """:meth:`read` as a numpy array."""
+        self.host_reads += 1
+        return t.cpu().numpy()
+
 
 def _register(
     config: ICPConfig,

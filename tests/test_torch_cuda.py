@@ -514,3 +514,196 @@ def test_icp_step_pose_unchanged_with_tf32_on(cuda_device):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     assert (poses[0] - poses[1]).abs().max() <= 1e-6
+
+
+# --- SLAM: the masked kNN, the back end's scatter-adds, the card against the CPU
+
+
+def _submap_like(rng, device, n, masked_share=0.3):
+    """A cloud of ``n`` points at street scale with about ``masked_share``
+    of them masked, as a grid-sampled submap leaves its padding."""
+    pts = torch.from_numpy((rng.normal(size=(1, n, 3)) * [20.0, 20.0, 1.5]).astype(np.float32))
+    mask = torch.from_numpy((rng.random(size=(1, n)) > masked_share).astype(np.float32))
+    return (pts * mask[..., None]).to(device), mask.to(device)
+
+
+def _knn_masked_equal(q, r, k, qm, rm):
+    """The kernel against the plain version on the card; for k above N
+    (which knn() pads) against knn() on the CPU copies."""
+    d, i = knn(q, r, k, qm, rm)
+    if k <= r.shape[1]:
+        pd, pi = knn_plain(q, r, k, qm, rm)
+    else:
+        cpu = [None if t is None else t.cpu() for t in (q, r, qm, rm)]
+        pd, pi = (t.to(q.device) for t in knn(cpu[0], cpu[1], k, cpu[2], cpu[3]))
+    torch.cuda.synchronize()
+    assert torch.equal(i, pi), f"{int((i != pi).sum())} indices differ"
+    assert torch.equal(d, pd)
+    return d, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["loop-closure refine", "fewer valid than k", "none valid",
+                                  "masked queries", "k above N", "tiled batch"])
+def test_masked_knn_kernel_matches_plain(cuda_device, rng, case):
+    if case == "loop-closure refine":  # (1, 16384) against (1, 16384), k = 1
+        q, _ = _submap_like(rng, cuda_device, 16384)
+        r, rm = _submap_like(rng, cuda_device, 16384)
+        _knn_masked_equal(q, r, 1, None, rm)
+        return
+    if case == "tiled batch":
+        q = _rand(rng, cuda_device, 3, 1027, 3, scale=10.0)
+        r = _rand(rng, cuda_device, 3, 5000, 3, scale=10.0)
+        rm = (torch.rand(3, 5000, device=cuda_device) > 0.5).float()
+        qm = (torch.rand(3, 1027, device=cuda_device) > 0.2).float()
+        for k in (1, 8, 32):
+            _knn_masked_equal(q, r, k, qm, rm)
+        return
+    n = 5 if case == "k above N" else 300
+    q = _rand(rng, cuda_device, 2, 200, 3, scale=5.0)
+    r = _rand(rng, cuda_device, 2, n, 3, scale=5.0)
+    rm = torch.ones(2, n, device=cuda_device)
+    qm = None
+    if case == "fewer valid than k":
+        rm[0] = 0.0
+        rm[0, [3, 77, 150]] = 1.0
+    elif case == "none valid":
+        rm[1] = 0.0
+    elif case == "masked queries":
+        qm = (torch.rand(2, 200, device=cuda_device) > 0.3).float()
+    else:
+        rm[0, 1] = 0.0
+    d, i = _knn_masked_equal(q, r, 8, qm, rm)
+    if case == "fewer valid than k":
+        assert torch.equal(i[0, :, 3:], i[0, :, :1].expand(-1, 5))
+    if case == "none valid":
+        assert bool((i[1] == 0).all()) and bool((d[1] == 1e10).all())
+    if case == "masked queries":
+        assert bool((i[qm == 0] == 0).all()) and bool((d[qm == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_masked_knn_on_the_card_launches_the_kernel(cuda_device, rng, monkeypatch):
+    import importlib
+
+    knn_mod = importlib.import_module("pwclonet_pylidarslam_torch.ops.knn")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(knn_mod, "knn_plain", refuse)
+    q, qm = _submap_like(rng, cuda_device, 512)
+    _cuda.reset_launch_counts()
+    knn(q, q, 4, qm, qm)
+    knn(q, q[:, :3].contiguous(), 4, qm, qm[:, :3].contiguous())  # k above N
+    assert _cuda.launch_counts()["knn"] == 2
+    with pytest.raises(ValueError):
+        knn(q, q, 4, ref_mask=qm[:, :100])  # a mask of the wrong shape
+
+
+def _circle_graph(n=200, radius=20.0, capacity=(256, 512, 8), seed=0):
+    """The circle of tests/pgo_fixtures.py with drifted odometry, a loop edge
+    from the last node to the first and four more across the circle."""
+    from pwclonet_pylidarslam_torch.core import se3
+    from pwclonet_pylidarslam_torch.slam import backend
+
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    for t in range(n):
+        a = 2 * np.pi * t / n
+        gt[t, :3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+        gt[t, :3, 3] = [radius * np.sin(a), radius * (1 - np.cos(a)), 0]
+    rng = np.random.default_rng(seed)
+    b = backend.PoseGraphBuilder(*capacity)
+    pose = gt[0]
+    b.add_node(pose)
+    for t in range(1, n):
+        noise = np.concatenate([rng.normal(scale=0.02, size=3), rng.normal(scale=0.002, size=3)])
+        rel = np.linalg.inv(gt[t - 1]) @ gt[t] @ se3.exp(torch.from_numpy(noise)).numpy()
+        pose = pose @ rel
+        b.add_node(pose)
+        b.add_odometry_edge(t - 1, rel)
+    for i, j in ((0, n - 1), (0, n // 2), (n // 8, 5 * n // 8), (n // 4, 3 * n // 4),
+                 (3 * n // 8, 7 * n // 8)):
+        b.add_loop_edge(i, j, np.linalg.inv(gt[i]) @ gt[j])
+    return b
+
+
+def _full_graph(device, nodes=8192, edges=16384, priors=256, seed=0):
+    """A graph that fills the back end's default capacity: a chain of
+    ``nodes`` poses, random edges across it up to ``edges``, ``priors``
+    priors. The accumulation's index is then ``2 * 16,384 + 256 = 33,024``
+    entries into 8,192 rows."""
+    from pwclonet_pylidarslam_torch.slam import backend
+
+    rng = np.random.default_rng(seed)
+    b = backend.PoseGraphBuilder(nodes, edges, priors)
+    for t in range(nodes):
+        pose = np.eye(4)
+        pose[0, 3] = t
+        b.add_node(pose)
+    for t in range(nodes - 1):
+        b.add_odometry_edge(t, np.linalg.inv(b.poses[t]) @ b.poses[t + 1])
+    for i, j in rng.integers(0, nodes, size=(edges - nodes + 1, 2)):
+        b.add_loop_edge(int(i), int(j), np.linalg.inv(b.poses[i]) @ b.poses[j])
+    for i in rng.integers(0, nodes, size=priors):
+        b.add_absolute_edge(int(i), b.poses[i])
+    return b.to_device(device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 36])
+def test_backend_scatter_add_matches_plain(cuda_device, rng, c):
+    """The back end's accumulation at its default capacity, full (V = 8192
+    nodes, M = 2 x 16,384 edges + 256 priors): the kernel equals the plain
+    version on the CPU copy of its inputs and itself, to the bit."""
+    from pwclonet_pylidarslam_torch.slam import backend
+
+    graph = _full_graph(cuda_device)
+    acc = backend._Accumulator(graph)
+    assert acc.idx.shape == (1, 2 * 16384 + 256)
+    parts = [_rand(rng, cuda_device, m, c) for m in (16384, 16384, 256)]
+    out = acc(*parts)
+    again = acc(*parts)
+    cpu = tgather.scatter_add_rows_plain(torch.cat(parts).cpu()[None], acc.idx.cpu(), 8192)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_backend_optimize_card_against_cpu_and_itself(cuda_device):
+    from pwclonet_pylidarslam_torch.slam import backend
+
+    b = _circle_graph()
+    cfg = backend.PGOConfig()
+    outs = [backend.optimize(b.to_device(device=d), cfg).poses.cpu()
+            for d in (cuda_device, cuda_device, "cpu")]
+    assert torch.equal(outs[0], outs[1])  # no float atomics: bit-identical
+    assert (outs[0] - outs[2]).abs().max() <= 1e-4
+    g = b.to_device(device=cuda_device)
+    before = float(backend.graph_cost(g))
+    after = float(backend.graph_cost(g, backend.optimize(g, cfg).poses))
+    cpu_g = b.to_device(device="cpu")
+    cpu_after = float(backend.graph_cost(cpu_g, backend.optimize(cpu_g, cfg).poses))
+    assert after < before
+    assert abs(before / after - before / cpu_after) <= 1e-3 * before / cpu_after
+
+
+@pytest.mark.cuda
+def test_refine_icp_card_against_cpu(cuda_device, rng):
+    from pwclonet_pylidarslam_torch.core import se3
+    from pwclonet_pylidarslam_torch.slam import loop_closure as lc
+
+    cfg = lc.LoopClosureConfig()
+    tgt, tm = _submap_like(rng, "cpu", 8192)
+    truth = se3.exp(torch.tensor([0.8, -0.4, 0.05, 0.0, 0.01, 0.04]))
+    src = se3.transform(se3.inverse(truth)[None], tgt)[0]
+    sm = tm[0]
+    init = se3.exp(torch.tensor([0.5, -0.2, 0.0, 0.0, 0.0, 0.02]))
+    args = (src, sm, tgt[0], tm[0], init)
+    _cuda.reset_launch_counts()
+    card = lc._refine_icp(cfg, *(a.to(cuda_device) for a in args))
+    counts = _cuda.launch_counts()
+    cpu = lc._refine_icp(cfg, *args)
+    assert counts["knn"] == counts["gather"] == cfg.icp_iterations
+    assert (card[0].cpu() - cpu[0]).abs().max() <= 1e-4
+    assert abs(float(card[1]) - float(cpu[1])) <= 1e-4

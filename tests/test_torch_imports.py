@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``pwclonet_pylidarslam_torch``, and
-neither ``chip_smoke.py`` nor ``train_net_torch.py``, imports JAX or the JAX
+neither ``chip_smoke.py`` nor the torch entry points (``train_net_torch.py``,
+``run_slam_torch.py``, ``replay_slam_torch.py``), imports JAX or the JAX
 package, and its entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -14,7 +15,8 @@ from pwclonet_pylidarslam_torch.slam.deep_odometry import DeepOdometryConfig, PW
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pwclonet_pylidarslam_tpu")
 SOURCES = sorted((REPO / "pwclonet_pylidarslam_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "train_net_torch.py"]
+    REPO / "chip_smoke.py", REPO / "train_net_torch.py", REPO / "run_slam_torch.py",
+    REPO / "replay_slam_torch.py"]
 
 
 def _imported_modules(path: Path):

@@ -153,6 +153,13 @@ def test_train_net_torch_cli(tmp_path):
     run = _cli("--do_test", "--test_sequences", "9", *common)
     assert run.returncode == 0, run.stderr
     assert "seq 09:" in run.stdout and "ATE=" in run.stdout
+    # the result files of train_net.py's test mode, readable by the reference
+    from pwclonet_pylidarslam_tpu.evaluation.results import read_metrics_yaml, read_poses_txt
+
+    assert read_poses_txt(str(tmp_path / "test" / "09.poses.txt")).shape == (16, 4, 4)
+    assert read_poses_txt(str(tmp_path / "test" / "09_gt.poses.txt")).shape == (16, 4, 4)
+    assert "ATE" in read_metrics_yaml(str(tmp_path / "test" / "metrics.yaml"))["09"]
+    assert (tmp_path / "test" / "09_eval" / "09_error.txt").exists()
     for option in (("model=posenet",), ("--dataset", "synthetic_world"), ("dataset=kitti360",)):
         run = _cli("--do_train", *option)
         assert run.returncode != 0 and "ROADMAP" in run.stderr

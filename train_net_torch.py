@@ -35,7 +35,7 @@ import torch
 from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.data.kitti import KittiPairDataset, KittiSequence
 from pwclonet_pylidarslam_torch.data.synthetic import SyntheticSequenceConfig, generate_sequence
-from pwclonet_pylidarslam_torch.evaluation.metrics import metrics_dict
+from pwclonet_pylidarslam_torch.evaluation.results import OdometryResults, write_devkit_report
 from pwclonet_pylidarslam_torch.models import scaled_model_config
 from pwclonet_pylidarslam_torch.slam.deep_odometry import DeepOdometryConfig, PWCLONetOdometry
 from pwclonet_pylidarslam_torch.train.state import TrainConfig
@@ -175,9 +175,10 @@ def run_train(config: Config) -> int:
 
 def run_test(config: Config) -> int:
     """PWCLO-Net odometry over the test sequences with the latest checkpoint
-    of ``log_dir``; prints the KITTI segment error and the ATE per sequence.
-    (The result files of ``train_net.py``'s test mode are written by
-    ``evaluation/results.py``, which is ROADMAP Queue A 5.)"""
+    of ``log_dir``, as ``train_net.py``'s test mode: per sequence the pose
+    files and ``metrics.yaml`` of ``OdometryResults`` under
+    ``<log_dir>/test`` and the devkit report under
+    ``<log_dir>/test/<seq>_eval``; prints the KITTI segment error and the ATE."""
     trainer = _trainer(config, fused_eval=config.fused_eval)
     trainer.load_checkpoint()
     odo = PWCLONetOdometry(
@@ -185,14 +186,18 @@ def run_test(config: Config) -> int:
         DeepOdometryConfig(model=trainer.config.train.model, num_points=config.num_points),
         device=config.device,
     )
+    results = OdometryResults(f"{config.log_dir}/test")
     for s in _seqs(config.test_sequences):
         seq = make_test_sequence(config, s)
         odo.init()
         for i in range(len(seq)):
             odo.process_next_frame(seq.scan(i))
-        gt = seq.ground_truth()
-        if gt is not None:
-            md = metrics_dict(odo.absolute_poses(), gt)
+        md = results.add_sequence(f"{s:02d}", odo.absolute_poses(), seq.ground_truth())
+        write_devkit_report(
+            f"{config.log_dir}/test/{s:02d}_eval", f"{s:02d}",
+            odo.absolute_poses(), seq.ground_truth(),
+        )
+        if md:
             print(f"seq {s:02d}: t_rel={md['tr_err']:.4f}% ATE={md['ATE']:.4f}")
     return 0
 
