@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port (PWCLO-Net odometry and training, classic ICP, SLAM)
-on one NVIDIA GPU and check it.
+"""Run the PyTorch port (PWCLO-Net odometry and training, classic ICP, SLAM,
+CT-ICP, PoseResNet) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--profile] [--kernels] [--icp] [--slam]
+    python3 chip_smoke.py [--profile] [--kernels] [--icp] [--slam] [--ct_icp] [--posenet]
 
 from the root of the repository, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which must pass:
@@ -119,6 +119,34 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    cost falling by the same factor within 1e-3), and ``optimize`` twice on
    the card on slam-icp-loop's graph at the default capacity, bit for bit.
 
+9. CT-ICP (plain PyTorch, none of the six kernels launched) at the full
+   width of ``config/kitti_ct_icp.yaml`` (8192 points), elastic and rigid,
+   over a 32-frame motion-distorted curve (``tests/test_ct_icp.py``'s
+   motion, the along-path world): one elastic step from the card's state
+   after 8 frames on the card and on the CPU (begin and end pose within
+   1e-4, or 3x the card's own movement under a one-ulp nudge of its state's
+   poses and scan where that is larger); a step under global TF32 gives the
+   same pose (1e-6); the final drift of elastic, rigid and projective ICP,
+   elastic within 1.5x the JAX reference's worst on these scans and below
+   projective ICP's; ms a frame of ``process_next_frame`` and
+   ``process_sequence``, device ms, launches and idle share a frame, GN
+   iterations and host reads a frame, peak memory; then
+   ``run_slam_torch.py odometry=ct_icp`` with loop closure and the back end
+   over 40 synthetic frames.
+
+10. PoseResNet (ResNet-18 on cuDNN convolutions in full fp32, deterministic;
+   none of the six kernels launched) at 64x720 vertex maps, batch 8: the
+   16x64 config card against CPU (eval and train forward within atol 1e-4 /
+   rtol 1e-3, the loss within 1e-5 relative, every gradient leaf within
+   1e-4 + 1e-3 of its largest magnitude); six supervised steps through
+   ``PoseNetTrainer.train_epoch`` and two unsupervised ones, all finite; the
+   same step twice from one state gives bit-identical gradients; the train
+   step's ms in fp32 and in TF32, its device launches and idle share, peak
+   memory; ``PoseNetOdometry`` from the checkpoint over 10 frames, per frame
+   within 1e-4 of ``process_sequence``, and the forward at B=1; then
+   ``train_net_torch.py --model posenet`` (train, then test) and
+   ``run_slam_torch.py odometry=posenet`` on synthetic data.
+
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
 thread count, the kNN kernel's at each number of queries a block, the MLP
@@ -132,7 +160,8 @@ after phase 2 and prints the cases and the variants (no last line); ``--icp``
 runs phase 7 alone (no build) and prints its metrics (no last line);
 ``--slam`` builds, runs phase 2's SLAM cases and phase 8 alone (with a
 checkpoint of seeded weights instead of phase 5's) and prints its metrics
-(no last line).
+(no last line); ``--ct_icp`` and ``--posenet`` run phase 9 and phase 10
+alone (no build) and print their metrics (no last line).
 """
 
 from __future__ import annotations
@@ -159,7 +188,11 @@ sys.path.insert(0, str(REPO))
 from pwclonet_pylidarslam_torch.data.synthetic import (  # noqa: E402
     SyntheticSequenceConfig,
     generate_sequence,
+    generate_sequence_with_times,
 )
+from pwclonet_pylidarslam_torch.core.projection import SphericalProjector  # noqa: E402
+from pwclonet_pylidarslam_torch.data import vm_pairs  # noqa: E402
+from pwclonet_pylidarslam_torch.models import posenet  # noqa: E402
 from pwclonet_pylidarslam_torch import ops  # noqa: E402
 from pwclonet_pylidarslam_torch.models import PWCLONet, PWCLONetConfig  # noqa: E402
 from pwclonet_pylidarslam_torch.models.layers import PointMLP  # noqa: E402
@@ -185,6 +218,8 @@ from pwclonet_pylidarslam_torch.slam.deep_odometry import (  # noqa: E402
 )
 from pwclonet_pylidarslam_torch.evaluation import metrics as odo_metrics  # noqa: E402
 from pwclonet_pylidarslam_torch.slam import icp_odometry as icp  # noqa: E402
+from pwclonet_pylidarslam_torch.slam import ct_icp_odometry as ct_icp  # noqa: E402
+from pwclonet_pylidarslam_torch.slam import deep_odometry as slam_deep  # noqa: E402
 from pwclonet_pylidarslam_torch.core import se3  # noqa: E402
 from pwclonet_pylidarslam_torch.core.registration import planar_to_pose, register_bev  # noqa: E402
 from pwclonet_pylidarslam_torch.evaluation.results import read_poses_txt  # noqa: E402
@@ -193,6 +228,8 @@ from pwclonet_pylidarslam_torch.slam import pipeline, runner as runner_mod  # no
 from pwclonet_pylidarslam_torch.train import state as tstate  # noqa: E402
 from pwclonet_pylidarslam_torch.train.fast_lane import run_fast_lane_recipe  # noqa: E402
 from pwclonet_pylidarslam_torch.train.losses import pwclonet_loss  # noqa: E402
+from pwclonet_pylidarslam_torch.train import posenet_state as pn_state  # noqa: E402
+from pwclonet_pylidarslam_torch.train import posenet_trainer  # noqa: E402
 from pwclonet_pylidarslam_torch.train.trainer import PWCLONetTrainer, TrainerConfig  # noqa: E402
 import run_slam_torch  # noqa: E402
 import train_net_torch  # noqa: E402
@@ -1822,6 +1859,441 @@ def slam_phase(ckpt_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: CT-ICP, elastic and rigid, at full width (plain PyTorch, no kernel)
+# ---------------------------------------------------------------------------
+
+# config/kitti_ct_icp.yaml (odometry=ct_icp) and its rigid twin: 8192
+# points, a 64x720 map, 20 keyframes, 15 alignments, the gate from 4.0 to
+# 0.5 m, Huber 0.1, the three CT-ICP priors at beta 0.003
+CT_CONFIGS = {
+    "ct-icp": ct_icp.CTICPConfig(num_points=8192),
+    "ct-icp-rigid": ct_icp.CTICPConfig(num_points=8192, elastic=False),
+}
+# tests/test_ct_icp.py's motion (curve, 2.5 m and 2 deg a frame, seed 3,
+# rolling shutter) over 32 frames, in the along-path world: the corridor
+# world ends after ~70 m of a curving path, and this one runs 77.5 m
+CT_FRAMES = 32
+CT_CARRY_FRAMES = 8  # card against CPU: one step from the card's state after 8 frames
+# one step card against CPU: the same ops on other hardware move the pose by
+# ~1e-7 unless a match flips; where the port's own step on the card moves by
+# more under a one-ulp nudge of its state's poses and scan, 3x that
+CT_STEP_ATOL = 1e-4
+# the final drift of the elastic run against ground truth. The JAX reference
+# on these scans (this generator, 8192 points, CTICPConfig()) on the CPU gave
+# 0.4520 m, and on the scans moved by one float32 ulp up and down 0.4015 and
+# 0.3994 m; the bound is 1.5x the worst of the three. Its rigid mode gave
+# 0.9715 m (0.8781, 0.9899) and projective ICP 0.9673 m: the elastic run
+# must also beat projective ICP, tests/test_ct_icp.py's own gate
+CT_REFERENCE_DRIFT_M = (0.4520, 0.4015, 0.3994)
+CT_DRIFT_BOUND_M = 1.5 * max(CT_REFERENCE_DRIFT_M)
+CT_TF32_POSE_ATOL = 1e-6
+
+
+def ct_sequence():
+    return generate_sequence_with_times(SyntheticSequenceConfig(
+        n_frames=CT_FRAMES, trajectory="curve", speed=2.5, yaw_rate_deg=2.0, seed=3,
+        motion_distortion=True, world="along_path"))
+
+
+def _ct_state_to(state, device):
+    return state._replace(
+        map=type(state.map)(*(x.to(device) for x in state.map)),
+        **{f: getattr(state, f).to(device) for f in state._fields
+           if f not in ("map", "frame_idx")})
+
+
+def _nudged_ct_state(state, direction: float):
+    def nudge(x):
+        return torch.where(x != 0, torch.nextafter(x, torch.full_like(x, direction)), x)
+
+    return state._replace(end_pose=nudge(state.end_pose), last_rel=nudge(state.last_rel),
+                          map=state.map._replace(poses=nudge(state.map.poses)))
+
+
+def ct_card_vs_cpu(scans, times) -> dict:
+    """One elastic step from the card's state after CT_CARRY_FRAMES frames,
+    on the card and on the CPU; and the card's own one-ulp sensitivity."""
+    cfg = CT_CONFIGS["ct-icp"]
+    odo = ct_icp.CTICPOdometry(cfg, device="cuda")
+    odo.init()
+    odo.process_sequence(scans[:CT_CARRY_FRAMES], times[:CT_CARRY_FRAMES])
+    st = odo.state
+    pts, ts = torch.from_numpy(scans[CT_CARRY_FRAMES]), torch.from_numpy(times[CT_CARRY_FRAMES])
+    _, card = ct_icp.process_frame(cfg, st, pts.cuda(), ts.cuda())
+    _, cpu = ct_icp.process_frame(cfg, _ct_state_to(st, "cpu"), pts, ts)
+    sens = 0.0
+    for direction in (math.inf, -math.inf):
+        moved = torch.where(pts != 0, torch.nextafter(pts, torch.full_like(pts, direction)), pts)
+        _, r = ct_icp.process_frame(cfg, _nudged_ct_state(st, direction), moved.cuda(), ts.cuda())
+        sens = max(sens, *(float((getattr(r, f) - getattr(card, f)).abs().max())
+                           for f in ("pose", "begin_pose")))
+    gaps = {f: (float((getattr(card, f).cpu() - getattr(cpu, f))[:3, 3].abs().max()),
+                icp_rotation_gap(getattr(card, f).cpu().numpy(), getattr(cpu, f).numpy()))
+            for f in ("pose", "begin_pose")}
+    bound = max(CT_STEP_ATOL, 3.0 * sens)
+    log(f"CT-ICP: card vs CPU one step: end {gaps['pose'][0]:.3g} m / {gaps['pose'][1]:.3g} rad, "
+        f"begin {gaps['begin_pose'][0]:.3g} m / {gaps['begin_pose'][1]:.3g} rad; the card's "
+        f"own one-ulp sensitivity {sens:.3g}; matches {float(card.num_matches):.0f} / "
+        f"{float(cpu.num_matches):.0f}")
+    check(all(t <= bound and r <= bound for t, r in gaps.values()),
+          f"CT-ICP: card and CPU steps from one state, begin and end pose within {bound:.3g} "
+          f"(m and rad; max of {CT_STEP_ATOL} and 3x the card's one-ulp sensitivity)")
+    return {"end_gap_m_rad": gaps["pose"], "begin_gap_m_rad": gaps["begin_pose"],
+            "one_ulp_sensitivity": sens, "bound": bound,
+            "num_matches": [float(card.num_matches), float(cpu.num_matches)]}
+
+
+def ct_tf32_check(scans, times) -> dict:
+    """One full-width elastic step with the TF32 switches off, then on
+    globally: the step sets its own precision."""
+    cfg = CT_CONFIGS["ct-icp"]
+    odo = ct_icp.CTICPOdometry(cfg, device="cuda")
+    odo.init()
+    odo.process_sequence(scans[:4], times[:4])
+    pts, ts = torch.from_numpy(scans[4]).cuda(), torch.from_numpy(times[4]).cuda()
+    poses = {}
+    for tf32 in (False, True):
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            poses[tf32] = ct_icp.process_frame(cfg, odo.state, pts, ts)[1].pose.cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    gap = float(np.abs(poses[True] - poses[False]).max())
+    check(gap <= CT_TF32_POSE_ATOL,
+          f"CT-ICP: a step under global TF32 gives the same pose ({gap:.3g} <= {CT_TF32_POSE_ATOL})")
+    return {"tf32_on_pose_gap": gap}
+
+
+def ct_accuracy(scans, times, gt) -> dict:
+    """Final drift (m, and over the path length) of elastic, rigid and
+    projective ICP on the same scans; elastic held to CT_DRIFT_BOUND_M."""
+    path_m = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=-1).sum())
+    out = {"path_m": path_m}
+    runs = {label: ct_icp.CTICPOdometry(cfg, device="cuda") for label, cfg in CT_CONFIGS.items()}
+    runs["icp-projective"] = icp.ICPOdometry(ICP_CONFIGS["projective"], device="cuda")
+    for label, odo in runs.items():
+        odo.init()
+        if label.startswith("ct"):
+            odo.process_sequence(scans, times)
+        else:
+            odo.process_sequence(scans)
+        pred = odo.absolute_poses()
+        drift = float(np.linalg.norm(pred[-1][:3, 3] - gt[-1][:3, 3]))
+        check(is_se3(pred), f"{label}: {CT_FRAMES} finite SE(3) poses")
+        out[label] = {"final_drift_m": drift, "drift_over_path": drift / path_m}
+    log("CT-ICP drift over the 32 distorted frames: " + ", ".join(
+        f"{k} {v['final_drift_m']:.4f} m" for k, v in out.items() if k != "path_m"))
+    check(out["ct-icp"]["final_drift_m"] <= CT_DRIFT_BOUND_M,
+          f"CT-ICP elastic: final drift <= {CT_DRIFT_BOUND_M:.4f} m (1.5x the JAX reference's "
+          f"worst over the scans and their one-ulp nudges)")
+    check(out["ct-icp"]["final_drift_m"] < out["icp-projective"]["final_drift_m"],
+          "CT-ICP elastic drifts less than projective ICP on the distorted scans")
+    return out
+
+
+def ct_timing(label: str, scans, times) -> dict:
+    """ms a frame of process_next_frame (median after the first) and of
+    process_sequence, device ms, launches and idle share a frame over a
+    profiled stretch of 4 frames, GN iterations and host reads a frame, peak
+    memory."""
+    cfg = CT_CONFIGS[label]
+    odo = ct_icp.CTICPOdometry(cfg, device="cuda")
+    odo.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = []
+    for scan, ts in zip(scans, times):
+        t0 = time.perf_counter()
+        odo.process_next_frame(scan, ts)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    iters, reads = list(odo.iterations), list(odo.host_reads)
+    peak = torch.cuda.max_memory_allocated()
+    seq_ms = []
+    for _ in range(2):
+        odo.init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        odo.process_sequence(scans, times)  # ends in a device-to-host copy
+        seq_ms.append(1e3 * (time.perf_counter() - t0) / len(scans))
+    odo.init()
+    odo.process_sequence(scans[:8], times[:8])
+    st0 = odo.state
+    dev_scans, dev_times = torch.from_numpy(scans[8:12]).cuda(), torch.from_numpy(times[8:12]).cuda()
+
+    def stretch():
+        st = st0
+        for t in range(4):
+            st, _ = ct_icp.process_frame(cfg, st, dev_scans[t], dev_times[t])
+
+    _, device = profile_device_events(stretch)
+    prof = summarize_device_events(device)
+    out = {
+        "process_next_frame_ms_median": statistics.median(frame_ms[1:]),
+        "process_sequence_ms_per_frame": statistics.median(seq_ms),
+        "process_sequence_ms_per_frame_runs": seq_ms,
+        "device_ms_per_frame": prof["device_ms"] / 4, "launches_per_frame": prof["device_launches"] / 4,
+        "idle_share": prof["idle_share"],
+        "gn_iterations_per_frame": statistics.mean(iters),
+        "host_reads_per_frame": statistics.mean(reads), "peak_memory_bytes": peak,
+        "top_kernels": prof["top_kernels"][:6],
+    }
+    log(f"{label}: process_next_frame {out['process_next_frame_ms_median']:.2f} ms/frame, "
+        f"process_sequence {out['process_sequence_ms_per_frame']:.2f} ms/frame, device "
+        f"{out['device_ms_per_frame']:.3f} ms and {out['launches_per_frame']:.0f} launches a "
+        f"frame, idle {out['idle_share']:.3f}, {out['gn_iterations_per_frame']:.2f} GN iterations "
+        f"and {out['host_reads_per_frame']:.2f} host reads a frame, peak {peak / 2**20:.0f} MiB")
+    return out
+
+
+def ct_cli_drive(out_dir: str) -> dict:
+    """run_slam_torch.py odometry=ct_icp on a synthetic sequence with loop
+    closure and the back end on."""
+    frames = 40
+    argv = ["odometry=ct_icp", "dataset=synthetic", "sequences=5", f"synthetic_frames={frames}",
+            "with_loop_closure=true", "with_backend=true", f"log_dir={out_dir}"]
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run_slam_torch.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, "run_slam_torch.py odometry=ct_icp with loop closure and back end exits 0")
+    poses = read_poses_txt(str(Path(out_dir, "synth05.poses.txt")))
+    check(poses.shape == (frames, 4, 4) and is_se3(poses),
+          "run_slam_torch.py odometry=ct_icp: poses written, finite SE(3)")
+    return {"argv": argv, "seconds": seconds, "ms_per_frame": 1e3 * seconds / frames,
+            "launches": _cuda.launch_counts()}
+
+
+def ct_icp_phase() -> dict:
+    t0 = time.perf_counter()
+    log(f"generating the {CT_FRAMES}-frame motion-distorted curve at 8192 points")
+    scans, times, gt = ct_sequence()
+    out = {"sequence_gen_s": time.perf_counter() - t0,
+           "configs": {k: repr(v) for k, v in CT_CONFIGS.items()}}
+    _cuda.reset_launch_counts()
+    out["card_vs_cpu"] = ct_card_vs_cpu(scans, times)
+    out["tf32"] = ct_tf32_check(scans, times)
+    out["accuracy"] = ct_accuracy(scans, times, gt)
+    for label in CT_CONFIGS:
+        out[label] = ct_timing(label, scans, times)
+    check(all(v == 0 for v in _cuda.launch_counts().values()),
+          "CT-ICP launched none of the point-op kernels (plain PyTorch)")
+    with tempfile.TemporaryDirectory() as work:
+        out["cli"] = ct_cli_drive(work)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: PoseResNet odometry and training at full width (cuDNN, no kernel)
+# ---------------------------------------------------------------------------
+
+# config/train_posenet.yaml and config/kitti_posenet.yaml: ResNet-18 over
+# 64x720 vertex-map pairs, batch 8, Adam at 1e-4, supervised
+PN_BATCH = 8
+PN_STEPS = 6
+PN_UNSUP_STEPS = 2
+PN_FRAMES = 10
+PN_SMALL = (16, 64)
+# card against CPU at 16x64, TF32 off: the same convolutions summed in
+# another order (cuDNN against oneDNN)
+PN_PARAMS_ATOL, PN_PARAMS_RTOL = 1e-4, 1e-3
+PN_CHAIN_ATOL = 1e-4  # per frame against process_sequence, over 9 chained poses
+
+
+def pn_pairs(n_frames: int, seed: int = 0) -> tuple:
+    """Vertex-map pairs at 64x720 of a synthetic corridor sequence."""
+    scans, gt = generate_sequence(SyntheticSequenceConfig(n_frames=n_frames, seed=seed))
+    ds = vm_pairs.VertexMapPairDataset.from_scans(scans, gt, SphericalProjector(),
+                                                  num_points=scans.shape[1])
+    return scans, ds
+
+
+def pn_small_card_vs_cpu() -> dict:
+    """16x64, ResNet-18 from one seed on both: eval and train forward, and
+    the train-mode loss and gradients, TF32 off."""
+    h, w = PN_SMALL
+    proj = SphericalProjector(height=h, width=w)
+    scans, gt = generate_sequence(SyntheticSequenceConfig(n_frames=3, num_points=2048, seed=1))
+    batch = next(vm_pairs.VertexMapPairDataset.from_scans(scans, gt, proj, num_points=2048)
+                 .batches(2, shuffle=False))
+    cfg = pn_state.PoseNetTrainConfig(projector=proj)
+    states = {d: pn_state.create_posenet_train_state(cfg, seed=0, device=d) for d in ("cuda", "cpu")}
+    frames = torch.from_numpy(np.stack([batch["vm1"], batch["vm2"]], axis=1))
+    out = {}
+    with posenet.conv_precision(), torch.no_grad():
+        for mode in (False, True):
+            a = states["cuda"].model(frames.cuda(), train=mode).cpu()
+            b = states["cpu"].model(frames, train=mode)
+            discard_batch_stats(states["cuda"].model)
+            discard_batch_stats(states["cpu"].model)
+            out["train" if mode else "eval"] = float((a - b).abs().max())
+            check(torch.allclose(a, b, atol=PN_PARAMS_ATOL, rtol=PN_PARAMS_RTOL),
+                  f"PoseResNet 16x64 {'train' if mode else 'eval'} forward card vs CPU within "
+                  f"atol {PN_PARAMS_ATOL} / rtol {PN_PARAMS_RTOL}")
+    grads = {}
+    losses = {}
+    for d, st in states.items():
+        losses[d], _, grads[d] = pn_state.posenet_loss_and_grads(cfg, st, batch)
+    worst = 0.0
+    for k, g in grads["cpu"].items():
+        gap = float((grads["cuda"][k].cpu() - g).abs().max())
+        worst = max(worst, gap / (1e-4 + 1e-3 * float(g.abs().max())))
+    check(abs(float(losses["cuda"]) - float(losses["cpu"])) <= 1e-5 * abs(float(losses["cpu"])),
+          "PoseResNet 16x64 loss card vs CPU within rtol 1e-5")
+    check(worst <= 1.0, "PoseResNet 16x64 gradients card vs CPU: every leaf within atol "
+          "1e-4 + 1e-3 of the leaf's largest magnitude")
+    out.update(loss=[float(losses["cuda"]), float(losses["cpu"])], grad_gap_over_tolerance=worst)
+    log(f"PoseResNet 16x64 card vs CPU: eval {out['eval']:.3g}, train {out['train']:.3g}, "
+        f"gradients at {worst:.3f} of their tolerance")
+    return out
+
+
+def pn_train(ds, log_dir: str) -> dict:
+    """PN_STEPS supervised steps through PoseNetTrainer.train_epoch, the
+    same step twice from one state (identical gradients), PN_UNSUP_STEPS
+    unsupervised steps; the step times in fp32 and TF32."""
+    trainer = posenet_trainer.PoseNetTrainer(posenet_trainer.PoseNetTrainerConfig(
+        log_dir=log_dir, steps_per_dispatch=PN_STEPS))
+    order = np.random.default_rng(0).permutation(len(ds))
+    batches = [ds[int(i)] for i in order[:PN_BATCH]]
+    batch = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    blocks = [batch] * PN_STEPS
+    t0 = time.perf_counter()
+    trainer.train_epoch(blocks)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    logs = trainer.last_epoch_logs
+    check(len(logs["loss"]) == PN_STEPS and np.all(np.isfinite(logs["loss"]))
+          and np.all(np.isfinite(logs["grad_norm"])) and not logs["skipped_nonfinite"].any(),
+          f"PoseNet: {PN_STEPS} supervised steps, losses and gradient norms finite, none skipped")
+    cfg, st = trainer.config.train, trainer.state
+    g1 = pn_state.posenet_loss_and_grads(cfg, st, batch)[2]
+    discard_batch_stats(st.model)
+    g2 = pn_state.posenet_loss_and_grads(cfg, st, batch)[2]
+    discard_batch_stats(st.model)
+    check(all(torch.equal(g1[k], g2[k]) for k in g1),
+          "PoseNet: the same step from one state twice gives bit-identical gradients")
+    ckpt = trainer.save_checkpoint("smoke")
+    # times: CUDA events around whole steps, fp32 then TF32
+    times = {}
+    for tf32 in (False, True):
+        tcfg = dataclasses.replace(cfg, tf32=tf32)
+        pn_state.posenet_train_step(tcfg, st, batch)  # warm
+        runs = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            pn_state.posenet_train_step(tcfg, st, batch)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        times["tf32" if tf32 else "fp32"] = {"train_step_ms": statistics.median(runs),
+                                             "runs": runs}
+    torch.cuda.reset_peak_memory_stats()
+    prof, device = profile_device_events(lambda: pn_state.posenet_train_step(cfg, st, batch))
+    peak = torch.cuda.max_memory_allocated()
+    step_prof = summarize_device_events(device)
+    ucfg = pn_state.PoseNetTrainConfig(loss="unsupervised")
+    ust = pn_state.create_posenet_train_state(ucfg, seed=0)
+    ubatch = {k: v for k, v in batch.items() if k != "gt_pose"}
+    ulogs = pn_state.posenet_train_steps(ucfg, ust, {k: np.stack([v] * PN_UNSUP_STEPS)
+                                                     for k, v in ubatch.items()})
+    ulosses = ulogs["loss"].cpu().numpy()
+    check(np.all(np.isfinite(ulosses)) and not ulogs["skipped_nonfinite"].any(),
+          f"PoseNet: {PN_UNSUP_STEPS} unsupervised steps, losses finite, none skipped")
+    log(f"PoseNet train step at batch {PN_BATCH}, 64x720: fp32 {times['fp32']['train_step_ms']:.2f} "
+        f"ms, TF32 {times['tf32']['train_step_ms']:.2f} ms; {step_prof['device_launches']} device "
+        f"launches, idle {step_prof['idle_share']:.3f}, peak {peak / 2**20:.0f} MiB")
+    return {"epoch_s": epoch_s, "losses": logs["loss"].tolist(),
+            "unsupervised_losses": ulosses.tolist(), "times": times,
+            "train_pairs_per_s_fp32": PN_BATCH / times["fp32"]["train_step_ms"] * 1e3,
+            "step_profile": step_prof, "peak_memory_bytes": peak, "_checkpoint": ckpt}
+
+
+def pn_odometry(ckpt: str, scans: np.ndarray) -> dict:
+    """PoseNetOdometry from the checkpoint over PN_FRAMES frames, per frame
+    against process_sequence; the forward at B=1 by CUDA events; one
+    profiled forward."""
+    a = slam_deep.PoseNetOdometry(ckpt)
+    a.init()
+    frame_ms = []
+    for scan in scans[:PN_FRAMES]:
+        t0 = time.perf_counter()
+        a.process_next_frame(scan)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    b = slam_deep.PoseNetOdometry(ckpt)
+    b.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.process_sequence(scans[:PN_FRAMES])
+    seq_ms = 1e3 * (time.perf_counter() - t0) / PN_FRAMES
+    gap = float(np.abs(a.absolute_poses() - b.absolute_poses()).max())
+    check(is_se3(a.absolute_poses()) and gap <= PN_CHAIN_ATOL,
+          f"PoseNetOdometry: finite SE(3) poses, per frame within {PN_CHAIN_ATOL} of "
+          f"process_sequence ({gap:.3g})")
+    vms = a._project(scans[:2])
+    frames = torch.stack([vms[1:], vms[:1]], dim=1)
+
+    def forward():
+        with torch.inference_mode(), posenet.conv_precision():
+            a.model(frames)
+
+    fwd = time_ms(forward, reps=20)
+    _, device = profile_device_events(forward)
+    prof = summarize_device_events(device)
+    log(f"PoseNetOdometry: forward at B=1 {fwd:.3f} ms ({prof['device_launches']} launches, idle "
+        f"{prof['idle_share']:.3f}), process_next_frame {statistics.median(frame_ms[1:]):.2f} ms, "
+        f"process_sequence {seq_ms:.2f} ms a frame; per frame vs batched {gap:.3g}")
+    return {"forward_ms_b1": fwd, "forward_profile": prof,
+            "process_next_frame_ms_median": statistics.median(frame_ms[1:]),
+            "process_sequence_ms_per_frame": seq_ms, "per_frame_vs_batched_gap": gap}
+
+
+def pn_cli_drive(work: str) -> dict:
+    """train_net_torch.py --model posenet --do_train, then --do_test, on
+    dataset=synthetic at 64x720; run_slam_torch.py odometry=posenet from that
+    checkpoint."""
+    log_dir, run_dir = str(Path(work, "train")), str(Path(work, "run"))
+    common = ["--model", "posenet", "--dataset", "synthetic", "--log_dir", log_dir]
+    t0 = time.perf_counter()
+    rc = train_net_torch.main(common + ["--do_train", "--num_epochs", "1", "--synthetic_batches",
+                                        "2"])
+    check(rc == 0, "train_net_torch.py --model posenet --do_train exits 0")
+    rc = train_net_torch.main(common + ["--do_test", "--test_sequences", "9"])
+    check(rc == 0 and Path(log_dir, "test", "09.poses.txt").exists()
+          and Path(log_dir, "test", "metrics.yaml").exists(),
+          "train_net_torch.py --model posenet --do_test exits 0 and writes the result files")
+    frames = 20
+    rc = run_slam_torch.main(["odometry=posenet", f"checkpoint_dir={log_dir}", "dataset=synthetic",
+                              "sequences=5", f"synthetic_frames={frames}", f"log_dir={run_dir}"])
+    poses = read_poses_txt(str(Path(run_dir, "synth05.poses.txt")))
+    check(rc == 0 and poses.shape == (frames, 4, 4) and is_se3(poses),
+          "run_slam_torch.py odometry=posenet: poses written, finite SE(3)")
+    return {"seconds": time.perf_counter() - t0}
+
+
+def posenet_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {"config": "PoseResNetConfig() (ResNet-18, pairs), 64x720 vertex maps, batch "
+                     f"{PN_BATCH}, Adam at 1e-4, supervised; seeded random weights"}
+    _cuda.reset_launch_counts()
+    out["small_card_vs_cpu"] = pn_small_card_vs_cpu()
+    scans, ds = pn_pairs(PN_BATCH + 4)
+    with tempfile.TemporaryDirectory() as work:
+        train = pn_train(ds, str(Path(work, "train")))
+        out["odometry"] = pn_odometry(train.pop("_checkpoint"), scans)
+        out["train"] = train
+        out["cli"] = pn_cli_drive(work)
+    check(all(v == 0 for v in _cuda.launch_counts().values()),
+          "PoseNet launched none of the point-op kernels (cuDNN convolutions)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1840,6 +2312,12 @@ def main() -> int:
     parser.add_argument("--kernels", action="store_true",
                         help="stop after phase 2: build, each kernel against its plain version, "
                              "and the FPS, kNN and MLP launch variants; prints no ok line")
+    parser.add_argument("--ct_icp", action="store_true",
+                        help="run phase 9 alone (CT-ICP, elastic and rigid, no kernel build); "
+                             "prints its metrics and no ok line")
+    parser.add_argument("--posenet", action="store_true",
+                        help="run phase 10 alone (PoseResNet odometry and training, no kernel "
+                             "build); prints its metrics and no ok line")
     parser.add_argument("--slam", action="store_true",
                         help="build, the SLAM kernel cases of phase 2, then phase 8 alone with a "
                              "checkpoint of seeded random weights; prints its metrics and no ok "
@@ -1855,6 +2333,15 @@ def main() -> int:
         log("phase 7 alone: classic ICP odometry at full width, projective and voxel")
         print(card_line())
         print(json.dumps({"icp": icp_phase()}))
+        return 0
+    if args.ct_icp or args.posenet:
+        print(card_line())
+        if args.ct_icp:
+            log("phase 9 alone: CT-ICP at full width, elastic and rigid")
+            print(json.dumps({"ct_icp": ct_icp_phase()}))
+        if args.posenet:
+            log("phase 10 alone: PoseResNet odometry and training at full width")
+            print(json.dumps({"posenet": posenet_phase()}))
         return 0
 
     log("phase 1: build the kernels")
@@ -1945,6 +2432,12 @@ def main() -> int:
     slam = slam_phase(train_dir.name)
     train_dir.cleanup()
 
+    log("phase 9: CT-ICP at full width, elastic and rigid")
+    ct_metrics = ct_icp_phase()
+
+    log("phase 10: PoseResNet odometry and training at full width")
+    pn_metrics = posenet_phase()
+
     kernels = []
     slam_icp = slam["slam-icp-loop"]["launches"]
     slam_deep = slam["slam-pwclonet-loop"]["launches"]
@@ -1982,8 +2475,8 @@ def main() -> int:
         "fused_vs_unfused_max_pose_gap": fused_gap,
         **{label: {**main[label], **times[label]} for label in odos},
         "train": {**train, **train_times}, "learning_recipe": learning,
-        "profile": profiles, "icp": icp_metrics, "slam": slam,
-        "total_s": time.perf_counter() - t_start,
+        "profile": profiles, "icp": icp_metrics, "slam": slam, "ct_icp": ct_metrics,
+        "posenet": pn_metrics, "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
     print(json.dumps({"metrics": metrics}))
@@ -2004,6 +2497,13 @@ def main() -> int:
                    m["profile"]["device_ms_per_frame"], m["final_error_m"]]
         finite += m["ms_per_optimization"]
     finite += [slam["drift"]["final_on_m"], slam["drift"]["final_off_m"]]
+    finite += [ct_metrics[label][key] for label in CT_CONFIGS
+               for key in ("process_next_frame_ms_median", "process_sequence_ms_per_frame",
+                           "device_ms_per_frame")]
+    finite += [ct_metrics["accuracy"][label]["final_drift_m"] for label in CT_CONFIGS]
+    finite += [pn_metrics["train"]["times"][p]["train_step_ms"] for p in ("fp32", "tf32")]
+    finite += [pn_metrics["odometry"][key] for key in ("forward_ms_b1",
+                                                       "process_next_frame_ms_median")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
     check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
           "six kernels and the masked kNN, each launched on its main path")

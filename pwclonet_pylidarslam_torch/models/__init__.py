@@ -1,4 +1,5 @@
-"""PWCLO-Net in PyTorch and its Flax weight and train-state converter."""
+"""PWCLO-Net (and, in ``models/posenet.py``, PoseResNet) in PyTorch, and the
+Flax weight and train-state converter."""
 
 from pwclonet_pylidarslam_torch.models.convert import load_flax_train_state, load_flax_variables
 from pwclonet_pylidarslam_torch.models.pwclonet import (

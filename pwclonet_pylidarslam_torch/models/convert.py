@@ -9,10 +9,13 @@ The port's submodules carry the Flax auto-names, so a leaf at Flax path
 ``SetConv_0.PointMLP_0.kernel_0``; batch statistics (``mean_i``/``var_i``)
 are buffers. Flax ``Dense`` kernels are ``(Cin, Cout)`` and become the
 transposed ``nn.Linear`` weight; ``PointMLP`` kernels keep ``(Cin, Cout)``.
+PoseResNet's ``Conv_i`` kernels (HWIO) become ``nn.Conv2d`` weights (OIHW)
+and its ``BatchNorm_i`` leaves take the torch names (``weight``, ``bias``,
+``running_mean``, ``running_var``).
 
 A reference train state crosses as the nested dict (or the ``.npz`` of its
 flattened paths, written by ``tools/export_flax_checkpoint.py``)
-``{"params", "batch_stats", "loss_params": {"s_param"}, "opt_state":
+``{"params", "batch_stats", "loss_params": {"s_param"} (or empty), "opt_state":
 {"count", "mu": {"net", "loss"}, "nu": {"net", "loss"}}, "step"}``:
 :func:`load_flax_train_state` puts Adam's ``mu``/``nu``/``count`` into the
 ``exp_avg``/``exp_avg_sq``/``count`` of the matching parameters.
@@ -20,7 +23,7 @@ flattened paths, written by ``tools/export_flax_checkpoint.py``)
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,14 +46,27 @@ def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _torch_key(flax_path: str) -> tuple:
-    """Flax path → (torch state-dict key, transpose?)."""
+_BATCHNORM_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                    "var": "running_var"}
+
+
+def _torch_key(flax_path: str) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """Flax path → (torch state-dict key, permutation of the value's axes or
+    None). ``Dense_0``/``Dense_1`` kernels ``(Cin, Cout)`` are transposed
+    into ``nn.Linear`` weights, ``Conv_i`` kernels HWIO become OIHW, and a
+    ``BatchNorm_i``'s ``scale``/``bias``/``mean``/``var`` are the port's
+    ``weight``/``bias``/``running_mean``/``running_var``."""
     collection, *rest = flax_path.split("/")
     if collection not in ("params", "batch_stats"):
         raise KeyError(f"unexpected variable collection {collection!r} in {flax_path!r}")
-    if len(rest) >= 2 and rest[-2] == "Dense_0" and rest[-1] == "kernel":
-        return ".".join(rest[:-1] + ["weight"]), True
-    return ".".join(rest), False
+    parent, leaf = (rest[-2], rest[-1]) if len(rest) >= 2 else ("", rest[-1])
+    if parent in ("Dense_0", "Dense_1") and leaf == "kernel":
+        return ".".join(rest[:-1] + ["weight"]), (1, 0)
+    if parent.startswith("Conv_") and leaf == "kernel":
+        return ".".join(rest[:-1] + ["weight"]), (3, 2, 0, 1)
+    if parent.startswith("BatchNorm_") and leaf in _BATCHNORM_NAMES:
+        return ".".join(rest[:-1] + [_BATCHNORM_NAMES[leaf]]), None
+    return ".".join(rest), None
 
 
 @torch.no_grad()
@@ -64,10 +80,10 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     targets.update(model.named_buffers())
     unset = set(targets)
     for path, value in flatten_variables(variables).items():
-        key, transpose = _torch_key(path)
+        key, perm = _torch_key(path)
         if key not in targets:
             raise KeyError(f"Flax leaf {path!r} has no torch counterpart {key!r}")
-        value = value.T if transpose else value
+        value = value if perm is None else value.transpose(perm)
         dst = targets[key]
         if tuple(value.shape) != tuple(dst.shape):
             raise ValueError(
@@ -98,16 +114,16 @@ def load_flax_npz(path) -> Dict:
         return unflatten_variables({key: data[key] for key in data.files})
 
 
-def _trainable_key(path: str) -> Tuple[str, bool]:
+def _trainable_key(path: str) -> Tuple[str, Optional[Tuple[int, ...]]]:
     """Path under an optimizer moment (``net/...`` or ``loss/...``) →
-    (key of ``TrainState.trainable()``, transpose?)."""
+    (key of ``TrainState.trainable()``, permutation of the axes or None)."""
     group, rest = path.split("/", 1)
     if group == "loss":
-        return f"loss.{rest.replace('/', '.')}", False
+        return f"loss.{rest.replace('/', '.')}", None
     if group != "net":
         raise KeyError(f"unexpected group {group!r} in optimizer moment path {path!r}")
-    key, transpose = _torch_key(f"params/{rest}")
-    return f"net.{key}", transpose
+    key, perm = _torch_key(f"params/{rest}")
+    return f"net.{key}", perm
 
 
 @torch.no_grad()
@@ -119,7 +135,7 @@ def load_flax_train_state(state, tree: Mapping):
     anything of the port's state is left unset, or if a shape differs."""
     load_flax_variables(state.model, {"params": tree["params"],
                                       "batch_stats": tree["batch_stats"]})
-    given = flatten_variables(tree["loss_params"])
+    given = flatten_variables(tree.get("loss_params", {}))
     if set(given) != set(state.loss_params):
         raise KeyError(f"loss parameters differ: {sorted(set(given) ^ set(state.loss_params))}")
     for name, dst in state.loss_params.items():
@@ -130,8 +146,9 @@ def load_flax_train_state(state, tree: Mapping):
     for ours, theirs in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
         moments[ours] = {}
         for path, value in flatten_variables(tree["opt_state"][theirs]).items():
-            key, transpose = _trainable_key(path)
-            moments[ours][key] = torch.tensor(value.T if transpose else value, dtype=torch.float32)
+            key, perm = _trainable_key(path)
+            value = value if perm is None else value.transpose(perm)
+            moments[ours][key] = torch.tensor(value, dtype=torch.float32)
     # the optimizer raises on a missing or extra name and on a shape that differs
     state.optimizer.load_state_dict({"count": int(tree["opt_state"]["count"]), **moments})
     state.step = int(tree["step"])

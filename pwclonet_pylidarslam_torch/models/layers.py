@@ -111,15 +111,17 @@ class PointMLP(nn.Module):
 
 
 def _pending_stats(module: nn.Module):
+    """The submodules that hold pending statistics: ``PointMLP`` and
+    ``posenet.BatchNorm``."""
     for m in module.modules():
-        if isinstance(m, PointMLP) and m.pending:
+        if getattr(m, "pending", None):
             yield m
 
 
 @torch.no_grad()
 def commit_batch_stats(module: nn.Module, keep: Optional[torch.Tensor] = None) -> None:
     """Write the running statistics that train-mode forwards left pending
-    into the buffers of every ``PointMLP`` under ``module``, in place (the
+    into the buffers of every module under ``module`` that holds them, in place (the
     folded weights are then refolded at their next use). ``keep`` is an
     optional 0-dim bool tensor on the buffers' device: where it is False the
     old statistics stay, without the host having to read it."""

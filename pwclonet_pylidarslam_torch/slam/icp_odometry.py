@@ -496,9 +496,10 @@ def _process_frame(config: ICPConfig, state: OdometryState, points: torch.Tensor
     )
 
 
-def stack_results(results: List[FrameResult]) -> FrameResult:
-    """Per-frame results stacked along a new leading axis."""
-    return FrameResult(*(torch.stack(list(xs)) for xs in zip(*results)))
+def stack_results(results: list):
+    """Per-frame results (``FrameResult`` or another NamedTuple of tensors)
+    stacked along a new leading axis."""
+    return type(results[0])(*(torch.stack(list(xs)) for xs in zip(*results)))
 
 
 def process_sequence(
@@ -519,18 +520,18 @@ def process_sequence(
     return state, stack_results(results)
 
 
-def _fetch(results: FrameResult) -> FrameResult:
-    """Stacked results to numpy in one device-to-host copy."""
-    t = results.pose.shape[0]
-    flat = torch.cat([
-        results.pose.reshape(t, 16), results.rel_pose.reshape(t, 16),
-        results.num_matches.reshape(t, 1), results.icp_cost.reshape(t, 1),
-        results.inserted_keyframe.reshape(t, 1).to(results.pose.dtype),
-    ], dim=1).cpu().numpy()
-    return FrameResult(
-        pose=flat[:, :16].reshape(t, 4, 4), rel_pose=flat[:, 16:32].reshape(t, 4, 4),
-        num_matches=flat[:, 32], icp_cost=flat[:, 33], inserted_keyframe=flat[:, 34] > 0,
-    )
+def _fetch(results):
+    """Stacked results (a NamedTuple of ``(T, ...)`` tensors) to numpy in
+    one device-to-host copy; bool fields come back as bool."""
+    t, dtype = results[0].shape[0], results[0].dtype
+    flat = torch.cat([x.reshape(t, -1).to(dtype) for x in results], dim=1).cpu().numpy()
+    out, col = [], 0
+    for x in results:
+        n = x[0].numel()
+        v = flat[:, col:col + n].reshape((t,) + tuple(x.shape[1:]))
+        out.append(v > 0 if x.dtype == torch.bool else v)
+        col += n
+    return type(results)(*out)
 
 
 class ICPOdometry:

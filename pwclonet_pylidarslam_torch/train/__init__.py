@@ -1,1 +1,2 @@
-"""Training of PWCLO-Net: loss, train state and steps, trainer."""
+"""Training of PWCLO-Net and of PoseResNet: losses, train states and steps,
+trainers."""

@@ -23,8 +23,9 @@ the optimizer's count of applied updates for the same reason.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -83,15 +84,19 @@ class Adam:
 
     ``eps`` is added outside the root and the bias corrections use the count
     of applied updates, starting at 1 for the first, as ``torch.optim.Adam``
-    does; the learning rate is :func:`learning_rate` of that count before
-    the update. Both moments live in one flat buffer each, so an update is a
-    handful of launches whatever the number of parameters, and one
-    ``torch.where`` withholds it.
+    does; the learning rate is ``schedule`` (by default
+    :func:`learning_rate` of ``config``) of that count before the update.
+    AdamW's decay is decoupled, ``lr · weight_decay · p``, on every tensor.
+    Both moments live in one flat buffer each, so an update is a handful of
+    launches whatever the number of parameters, and one ``torch.where``
+    withholds it.
     """
 
-    def __init__(self, named: Mapping[str, torch.Tensor], config: TrainConfig,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    def __init__(self, named: Mapping[str, torch.Tensor], config,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.config = config
+        self.schedule = schedule or functools.partial(learning_rate, config)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.names = list(named)
         self.params = list(named.values())
@@ -120,7 +125,7 @@ class Adam:
         if self.config.weight_decay > 0:
             flat_params = torch.cat([p.reshape(-1) for p in self.params])
             direction = direction + self.config.weight_decay * flat_params
-        step = learning_rate(self.config, self.count).to(torch.float32) * direction
+        step = self.schedule(self.count).to(torch.float32) * direction
         if apply is not None:
             step = torch.where(apply, step, torch.zeros_like(step))
             exp_avg = torch.where(apply, exp_avg, self.exp_avg)
@@ -157,17 +162,18 @@ class TrainState:
     """The network, the loss parameters, the optimizer, the count of train
     steps taken and the generator the steps draw their dropout masks from."""
 
-    def __init__(self, model: PWCLONet, loss_params: Dict[str, torch.Tensor], config: TrainConfig,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, model: torch.nn.Module, loss_params: Dict[str, torch.Tensor], config,
+                 generator: Optional[torch.Generator] = None,
+                 schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.model = model
         self.loss_params = loss_params
-        self.optimizer = Adam(self.trainable(), config)
+        self.optimizer = Adam(self.trainable(), config, schedule=schedule)
         self.step = 0
         self.generator = generator
 
     @property
     def device(self) -> torch.device:
-        return self.loss_params["s_param"].device
+        return next(self.model.parameters()).device
 
     def trainable(self) -> Dict[str, torch.Tensor]:
         """``{"net.<parameter name>": ..., "loss.s_param": ...}``."""

@@ -34,11 +34,6 @@ NOT_PORTED = {
         for name in ("kitti360", "nclt", "ford", "nhcd", "rosbag", "urbanloco", "ply_dir",
                      "kitti_carla")
     },
-    "odometry": {
-        "ct_icp": "odometry=ct_icp: slam/ct_icp_odometry.py, ROADMAP Queue A 6",
-        "ct_icp_rigid": "odometry=ct_icp_rigid: slam/ct_icp_odometry.py, ROADMAP Queue A 6",
-        "posenet": "odometry=posenet: PoseNet, ROADMAP Queue A 7",
-    },
 }
 
 
@@ -52,8 +47,8 @@ class RunConfig:
     sequences: str = "0"  # comma-separated
     log_dir: str = "./slam_output"
     max_frames: int = 0  # 0 = all
-    odometry: str = "icp"  # icp | pwclonet (the others: NOT_PORTED)
-    checkpoint_dir: str = ""  # train_net_torch.py log_dir (odometry=pwclonet)
+    odometry: str = "icp"  # icp | ct_icp | ct_icp_rigid | pwclonet | posenet
+    checkpoint_dir: str = ""  # train_net_torch.py log_dir (odometry=pwclonet|posenet)
     fused_eval: bool = False  # pwclonet: the fused eval kernels
     vm_height: int = 64  # posenet vertex-map shape
     vm_width: int = 720
@@ -95,7 +90,7 @@ def check_ported(config: RunConfig) -> None:
         raise NotImplementedError(GALLERY_NOT_PORTED)
     if config.dataset not in ("synthetic", "kitti"):
         raise SystemExit(f"unknown dataset {config.dataset!r}")
-    if config.odometry not in ("icp", "pwclonet"):
+    if config.odometry not in ("icp", "ct_icp", "ct_icp_rigid", "pwclonet", "posenet"):
         raise SystemExit(f"unknown odometry {config.odometry!r}")
 
 
@@ -177,6 +172,39 @@ def make_odometry(config: RunConfig, slam_cfg):
         return PWCLONetOdometry(
             trainer.state.state_dict(),
             DeepOdometryConfig(model=model_cfg, num_points=config.num_points),
+            device=config.device,
+        )
+    if config.odometry == "posenet":
+        from pwclonet_pylidarslam_torch.core.projection import SphericalProjector
+        from pwclonet_pylidarslam_torch.slam.deep_odometry import (
+            PoseNetOdometry,
+            PoseNetOdometryConfig,
+        )
+        from pwclonet_pylidarslam_torch.train.posenet_state import PoseNetTrainConfig
+        from pwclonet_pylidarslam_torch.train.posenet_trainer import (
+            PoseNetTrainer,
+            PoseNetTrainerConfig,
+        )
+
+        if not config.checkpoint_dir:
+            raise SystemExit("odometry=posenet requires checkpoint_dir=<train_net_torch log_dir>")
+        projector = SphericalProjector(height=config.vm_height, width=config.vm_width)
+        trainer = PoseNetTrainer(
+            PoseNetTrainerConfig(
+                train=PoseNetTrainConfig(projector=projector),
+                vm_shape=(config.vm_height, config.vm_width),
+                log_dir=config.checkpoint_dir,
+            ),
+            device=config.device,
+        )
+        trainer.load_checkpoint()
+        return PoseNetOdometry(trainer.odometry_variables(),
+                               PoseNetOdometryConfig(projector=projector), device=config.device)
+    if config.odometry in ("ct_icp", "ct_icp_rigid"):
+        from pwclonet_pylidarslam_torch.slam import CTICPConfig, CTICPOdometry
+
+        return CTICPOdometry(
+            CTICPConfig(num_points=config.num_points, elastic=config.odometry == "ct_icp"),
             device=config.device,
         )
     from pwclonet_pylidarslam_torch.slam.icp_odometry import ICPConfig, ICPOdometry

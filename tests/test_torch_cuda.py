@@ -707,3 +707,48 @@ def test_refine_icp_card_against_cpu(cuda_device, rng):
     assert counts["knn"] == counts["gather"] == cfg.icp_iterations
     assert (card[0].cpu() - cpu[0]).abs().max() <= 1e-4
     assert abs(float(card[1]) - float(cpu[1])) <= 1e-4
+
+
+# --- CT-ICP and PoseResNet (plain PyTorch and cuDNN): the card against the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elastic", [True, False], ids=["elastic", "rigid"])
+def test_ct_icp_step_card_against_cpu(cuda_device, elastic):
+    from pwclonet_pylidarslam_torch.data.synthetic import (
+        SyntheticSequenceConfig,
+        generate_sequence_with_times,
+    )
+    from pwclonet_pylidarslam_torch.slam import ct_icp_odometry as ct
+
+    scans, times, _ = generate_sequence_with_times(SyntheticSequenceConfig(
+        n_frames=5, trajectory="curve", speed=2.5, yaw_rate_deg=2.0, seed=3,
+        motion_distortion=True, num_points=2048))
+    cfg = ct.CTICPConfig(num_points=2048, elastic=elastic)
+    odo = ct.CTICPOdometry(cfg, device=cuda_device)
+    odo.init()
+    odo.process_sequence(scans[:4], times[:4])
+    state = odo.state
+    cpu_state = state._replace(map=type(state.map)(*(x.cpu() for x in state.map)),
+                               **{f: getattr(state, f).cpu() for f in
+                                  ("end_pose", "begin_pose", "last_rel", "last_kf_pose",
+                                   "boot_scan", "boot_alphas")})
+    pts, ts = torch.from_numpy(scans[4]), torch.from_numpy(times[4])
+    _, card = ct.process_frame(cfg, state, pts.to(cuda_device), ts.to(cuda_device))
+    _, cpu = ct.process_frame(cfg, cpu_state, pts, ts)
+    for field in ("pose", "begin_pose"):
+        assert (getattr(card, field).cpu() - getattr(cpu, field)).abs().max() <= 1e-4
+    assert abs(float(card.num_matches) - float(cpu.num_matches)) <= 2
+
+
+@pytest.mark.cuda
+def test_posenet_forward_card_against_cpu(cuda_device, rng):
+    from pwclonet_pylidarslam_torch.models import posenet as pn
+
+    cpu = pn.PoseResNet(pn.PoseResNetConfig(), seed=0, device="cpu")
+    card = pn.PoseResNet(pn.PoseResNetConfig(), seed=0, device=cuda_device)
+    x = torch.from_numpy((rng.normal(size=(2, 2, 16, 64, 3)) * 10).astype(np.float32))
+    with pn.conv_precision():
+        want = cpu(x)
+        got = card(x.to(cuda_device))
+    assert (got.cpu() - want).abs().max() <= 1e-4
