@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port (PWCLO-Net odometry and training, classic ICP, SLAM,
-CT-ICP, PoseResNet) on one NVIDIA GPU and check it.
+CT-ICP, PoseResNet, the PointNet++ cls/semseg family) on one NVIDIA GPU and
+check it.
 
     python3 chip_smoke.py [--profile] [--kernels] [--icp] [--slam] [--ct_icp] [--posenet]
+                          [--cls_seg]
 
 from the root of the repository, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which must pass:
@@ -147,6 +149,26 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    ``train_net_torch.py --model posenet`` (train, then test) and
    ``run_slam_torch.py odometry=posenet`` on synthetic data.
 
+11. The PointNet++ cls/semseg family (``models/cls_seg.py``: ball query,
+   three-NN interpolation, MSG set abstraction, feature propagation) at the
+   upstream recipes' full width, batch 32: cls-ssg and cls-msg on 1,024-point
+   procedural shapes, semseg-ssg on 4,096-point, 9-channel procedural rooms.
+   FPS, kNN (k=3), the gather and the scatter-add at every call that each
+   cell's train-mode forward + backward, eval forward at B=32 and eval
+   forward at B=1 make, on those calls' own inputs (recorded by wrapping the
+   CUDA wrappers, ``tools/time_point_kernels.py::recorded_calls``): FPS, kNN and the
+   gather ``torch.equal`` to their plain versions (the gather up to 512
+   columns), the scatter-add ``torch.equal`` to its plain version on the
+   CPU copy, each timed, with the scatter-add's longest segment; the tiny
+   plans card against CPU (eval logits within atol 1e-4 / rtol 1e-4; the
+   train loss within 1e-5 relative, every gradient leaf within 1e-4 + 1e-3
+   of its largest magnitude); per cell the exact launches of one eval
+   forward and one train step, six train steps with finite losses, the same
+   step twice from one state giving bit-identical gradients, forward ms at
+   B=32 and B=1, train-step ms, one profiled forward and step (device ms,
+   launches, idle share), peak memory; then ``train_net_torch.py --model
+   cls`` and ``--model semseg`` for one epoch on procedural data.
+
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
 thread count, the kNN kernel's at each number of queries a block, the MLP
@@ -161,16 +183,21 @@ runs phase 7 alone (no build) and prints its metrics (no last line);
 ``--slam`` builds, runs phase 2's SLAM cases and phase 8 alone (with a
 checkpoint of seeded weights instead of phase 5's) and prints its metrics
 (no last line); ``--ct_icp`` and ``--posenet`` run phase 9 and phase 10
-alone (no build) and print their metrics (no last line).
+alone (no build) and print their metrics (no last line); ``--cls_seg``
+builds and runs phase 11 alone and prints its metrics (no last line).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import importlib
+import io
 import json
 import math
+import pickle
 import statistics
 import subprocess
 import sys
@@ -191,10 +218,12 @@ from pwclonet_pylidarslam_torch.data.synthetic import (  # noqa: E402
     generate_sequence_with_times,
 )
 from pwclonet_pylidarslam_torch.core.projection import SphericalProjector  # noqa: E402
-from pwclonet_pylidarslam_torch.data import vm_pairs  # noqa: E402
+from pwclonet_pylidarslam_torch.data import shapes, vm_pairs  # noqa: E402
 from pwclonet_pylidarslam_torch.models import posenet  # noqa: E402
 from pwclonet_pylidarslam_torch import ops  # noqa: E402
 from pwclonet_pylidarslam_torch.models import PWCLONet, PWCLONetConfig  # noqa: E402
+from pwclonet_pylidarslam_torch.models import cls_seg as cls_seg_models  # noqa: E402
+from pwclonet_pylidarslam_torch.models import load_flax_variables  # noqa: E402
 from pwclonet_pylidarslam_torch.models.layers import PointMLP  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import _cuda  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import fps as tfps  # noqa: E402
@@ -230,9 +259,14 @@ from pwclonet_pylidarslam_torch.train.fast_lane import run_fast_lane_recipe  # n
 from pwclonet_pylidarslam_torch.train.losses import pwclonet_loss  # noqa: E402
 from pwclonet_pylidarslam_torch.train import posenet_state as pn_state  # noqa: E402
 from pwclonet_pylidarslam_torch.train import posenet_trainer  # noqa: E402
+from pwclonet_pylidarslam_torch.train import cls_seg as cls_seg_train  # noqa: E402
 from pwclonet_pylidarslam_torch.train.trainer import PWCLONetTrainer, TrainerConfig  # noqa: E402
 import run_slam_torch  # noqa: E402
 import train_net_torch  # noqa: E402
+from tools.time_point_kernels import gather_targets, recorded_calls  # noqa: E402
+
+# the module: the package's ``ops.knn`` is the function it exports
+knn_mod = importlib.import_module("pwclonet_pylidarslam_torch.ops.knn")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores, published
@@ -476,15 +510,17 @@ def gather_case(src: torch.Tensor, idx: torch.Tensor) -> dict:
     }
 
 
-def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: str) -> dict:
+def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: str,
+                 upd: torch.Tensor = None) -> dict:
     """``idx (B, S, K)``: a grouping's neighbour indices into ``n`` source
-    rows; the incoming gradient is random, ``(B, S*K, c)``. The kernel adds
+    rows; the incoming gradient is ``upd (B, S*K, c)``, random when None. The kernel adds
     each row's updates in ascending m from 0.0f, as ``index_add_`` does on
     the CPU: it must equal that to the bit."""
     b = idx.shape[0]
     flat = idx.reshape(b, -1).contiguous()
     m = flat.shape[1]
-    upd = torch.randn(b, m, c, device=idx.device, generator=gen)
+    if upd is None:
+        upd = torch.randn(b, m, c, device=idx.device, generator=gen)
     out = tgather.scatter_add_rows(upd, flat, n)
     again = tgather.scatter_add_rows(upd, flat, n)
     ref = tgather.scatter_add_rows_plain(upd, flat, n)
@@ -2294,6 +2330,289 @@ def posenet_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the PointNet++ cls/semseg family (ball query, three-NN
+# interpolation, MSG set abstraction, feature propagation) at full width
+# ---------------------------------------------------------------------------
+
+CLS_SEG_BATCH = 32  # ClsSegTrainConfig.batch_size, the upstream recipes'
+CLS_SEG_STEPS = 6
+# label -> (task, plan, points a cloud): the upstream recipes the reference
+# ships (models/cls_seg.py): ModelNet40-sized clouds of 1,024 points for
+# cls, Indoor3D blocks of 4,096 points x 9 channels for semseg; procedural
+# data (SyntheticShapes, 6 classes; SyntheticRooms, 4 classes)
+CLS_SEG_CELLS = {
+    "cls-ssg": ("cls", cls_seg_models.CLS_SSG, 1024),
+    "cls-msg": ("cls", cls_seg_models.CLS_MSG, 1024),
+    "semseg-ssg": ("semseg", cls_seg_models.SEM_SSG, 4096),
+}
+# launches per eval forward and per train step, read off models/pointnet2.py
+# and models/cls_seg.py: a sampling SetConvMSG launches FPS 1 and the gather
+# 1 for its centres and 1 a scale (the ball grouping; the ball query itself
+# is plain PyTorch); the group-all stage none; a FeaturePropagation with
+# known points kNN 1 (three_nn, k=3) and gather 1 (three_interpolate). A
+# train step adds one scatter-add for each gather whose source needs a
+# gradient: the groupings of every stage above the first (the first groups
+# xyz and the input's own channels) and every interpolation.
+CLS_SEG_LAUNCHES = {
+    "cls-ssg": ({"fps": 2, "knn": 0, "gather": 4},
+                {"fps": 2, "knn": 0, "gather": 4, "scatter_add": 1}),
+    "cls-msg": ({"fps": 2, "knn": 0, "gather": 8},
+                {"fps": 2, "knn": 0, "gather": 8, "scatter_add": 3}),
+    "semseg-ssg": ({"fps": 4, "knn": 4, "gather": 12},
+                   {"fps": 4, "knn": 4, "gather": 12, "scatter_add": 7}),
+}
+# card against CPU at the tiny plans of tests/test_cls_seg.py (the
+# classifier at B=8: its head's BatchNorm over B rows is degenerate at B=2):
+# the same ops in other reduction orders (cuBLAS, the BatchNorm sums)
+CLS_SEG_SMALL = {
+    "cls": (((32, (0.5, 1.0), (8, 16), ((16, 32), (16, 32))), (8, (1.0,), (8,), ((32, 64),)),
+             (None, (None,), (None,), ((64, 128),))), 256, 8),
+    "semseg": (((32, (0.5,), (8,), ((16, 32),)), (8, (1.0,), (8,), ((32, 64),))), 256, 2),
+}
+CLS_SEG_LOGITS_TOL = dict(atol=1e-4, rtol=1e-4)
+CLS_SEG_LOSS_RTOL = 1e-5
+CLS_SEG_GRAD_BAR = (1e-4, 1e-3)  # atol + share of the leaf's largest magnitude
+
+
+def cls_seg_model(task: str, stages, device: str = "cuda", seed: int = 0):
+    if task == "cls":
+        return cls_seg_models.PointNet2Classification(len(shapes.SHAPE_CLASSES), stages,
+                                                      seed=seed, device=device)
+    return cls_seg_models.PointNet2Segmentation(4, stages, in_channels=6, seed=seed,
+                                                device=device)
+
+
+def cls_seg_batches(task: str, n_points: int, n_batches: int, batch: int = CLS_SEG_BATCH,
+                    seed: int = 0) -> list:
+    """Procedural batches as train_net_torch.py draws them (cls augmented)."""
+    if task == "cls":
+        ds = shapes.SyntheticShapes(num_items=n_batches * batch, num_points=n_points, seed=seed)
+    else:
+        ds = shapes.SyntheticRooms(num_items=n_batches * batch, num_points=n_points, seed=seed)
+    return list(shapes.batches(ds, batch, np.random.default_rng(seed), augment=task == "cls"))
+
+
+def cls_seg_config(task: str, batch: int = CLS_SEG_BATCH) -> cls_seg_train.ClsSegTrainConfig:
+    return cls_seg_train.ClsSegTrainConfig(batch_size=batch, lr_decay=0.7 if task == "cls" else 0.5,
+                                           decay_step=2e4 if task == "cls" else 3e5)
+
+
+def point_targets() -> dict:
+    """The CUDA wrappers of FPS, kNN, the gather and the scatter-add, for
+    ``recorded_calls``."""
+    return {"fps": (tfps, "_furthest_point_sample_cuda",
+                    lambda points, npoint, mask: (points.shape[0], points.shape[1], npoint)),
+            "knn": (knn_mod, "_knn_cuda",
+                    lambda query, ref, k: (query.shape[0], query.shape[1], ref.shape[1], k)),
+            **gather_targets(tgather)}
+
+
+def cls_seg_kernel_cases() -> dict:
+    """FPS, kNN, the gather and the scatter-add at every call that each
+    cell's paths make: one train-mode forward + backward and one eval
+    forward at batch 32, one eval forward at B=1 (the CLI's runs have the
+    cells' shapes), on the inputs those calls got. FPS, kNN and the gather
+    ``torch.equal`` to their plain versions, the scatter-add ``torch.equal``
+    to its plain version on the CPU copy; each timed against its plain
+    version and library call."""
+    cases = {"fps": [], "knn": [], "gather": [], "scatter_add": []}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for label, (task, stages, n_points) in CLS_SEG_CELLS.items():
+        cfg = cls_seg_config(task)
+        state = cls_seg_train.create_cls_seg_state(cls_seg_model(task, stages), cfg)
+        batch = {k: torch.as_tensor(v).cuda()
+                 for k, v in cls_seg_batches(task, n_points, 1)[0].items()}
+        xyz, feat = cls_seg_train.split_inputs(batch["points"])
+
+        def paths():
+            cls_seg_train.cls_seg_loss_and_grads(cfg, state, batch)
+            discard_batch_stats(state.model)
+            with torch.no_grad():
+                state.model(xyz, feat)
+                state.model(xyz[:1], None if feat is None else feat[:1])
+
+        calls = recorded_calls(point_targets(), paths)
+        check(all(args[2] is None for _, args, _ in calls["fps"].values())
+              and all(v is None for _, _, kw in calls["knn"].values() for v in kw.values()),
+              f"{label}: the FPS and kNN calls of the path are unmasked")
+        for launches, (points, npoint, _), _ in calls["fps"].values():
+            cases["fps"].append({"drive": label, "launches": launches,
+                                 **fps_case(points, npoint)})
+        for launches, (query, ref, k), _ in calls["knn"].values():
+            cases["knn"].append({"drive": label, "launches": launches,
+                                 **knn_case(query, ref, k, what=label)})
+        for launches, (src, idx), _ in calls["gather"].values():
+            cases["gather"].append({"drive": label, "launches": launches,
+                                    **gather_case(src, idx)})
+        for (b, n, m, c), (launches, (upd, idx, _), _) in calls["scatter_add"].items():
+            cases["scatter_add"].append({"drive": label, "launches": launches, **scatter_case(
+                gen, idx[..., None], n, c, label, upd=upd)})
+        del state, calls
+        torch.cuda.empty_cache()
+    widths = sorted({int(c["shape"].split("C=")[1].split()[0]) for c in cases["gather"]})
+    check(any(w > 256 for w in widths),
+          f"phase 11 held the gather at widths above 256 ({widths})")
+    return cases
+
+
+def cls_seg_small_card_vs_cpu() -> dict:
+    """The tiny plans on the card against the CPU from one seed: eval logits,
+    and one train-mode loss and gradients (dropout off)."""
+    out = {}
+    for task, (plan, n_points, batch) in CLS_SEG_SMALL.items():
+        stages = tuple(cls_seg_models.SAStage(*s) for s in plan)
+        cpu, gpu = cls_seg_model(task, stages, "cpu", 3), cls_seg_model(task, stages, "cuda", 4)
+        gpu.load_state_dict(cpu.state_dict())
+        cpu.dropout = gpu.dropout = 0.0
+        data = cls_seg_batches(task, n_points, 1, batch=batch, seed=5)[0]
+        with torch.no_grad():
+            ref = cpu(*cls_seg_train.split_inputs(torch.from_numpy(data["points"])))
+            got = gpu(*cls_seg_train.split_inputs(torch.from_numpy(data["points"]).cuda()))
+        err = (got.cpu() - ref).abs().max().item()
+        check(torch.allclose(got.cpu(), ref, **CLS_SEG_LOGITS_TOL),
+              f"{task} small plan: card vs CPU eval logits within {CLS_SEG_LOGITS_TOL} "
+              f"(max {err:.3g})")
+        cfg = cls_seg_config(task, batch)
+        states = [cls_seg_train.create_cls_seg_state(m, cfg) for m in (cpu, gpu)]
+        (ref_loss, _, ref_g), (loss, _, g) = [
+            cls_seg_train.cls_seg_loss_and_grads(cfg, st, data) for st in states]
+        loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        check(loss_err <= CLS_SEG_LOSS_RTOL,
+              f"{task} small plan train step: card vs CPU loss within rtol {CLS_SEG_LOSS_RTOL} "
+              f"({loss.item():.6f} vs {ref_loss.item():.6f})")
+        atol, share = CLS_SEG_GRAD_BAR
+        worst = max((a.cpu() - r).abs().max().item() / (atol + share * r.abs().max().item())
+                    for a, r in zip(g, ref_g))
+        check(worst <= 1.0, f"{task} small plan train step: every gradient leaf within atol "
+              f"{atol} + {share} of its largest magnitude (worst at {worst:.3g} of the bar)")
+        out[task] = {"eval_logits_max_abs_err": err, "train_loss_rel_err": loss_err,
+                     "grad_worst_share_of_bar": worst}
+    return out
+
+
+def cls_seg_drive(label: str) -> dict:
+    """One cell at full width, batch 32: the launches of one eval forward and
+    one train step (checked exactly), six train steps (finite losses), the
+    same step twice from one state (bit-identical gradients), forward ms at
+    B=32 and B=1 and train-step ms (CUDA events), one profiled step, peak
+    memory."""
+    task, stages, n_points = CLS_SEG_CELLS[label]
+    cfg = cls_seg_config(task)
+    state = cls_seg_train.create_cls_seg_state(cls_seg_model(task, stages), cfg)
+    model = state.model
+    check(all(p.is_cuda for p in model.parameters()), f"{label}: the model lies on the card")
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in cls_seg_batches(task, n_points, CLS_SEG_STEPS)]
+    xyz, feat = cls_seg_train.split_inputs(batches[0]["points"])
+    forward_b1 = lambda: model(xyz[:1], None if feat is None else feat[:1])  # noqa: E731
+    with torch.no_grad():
+        model(xyz, feat)  # warm
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        logits = model(xyz, feat)
+        torch.cuda.synchronize()
+    fwd_launches = _cuda.launch_counts()
+    want_fwd, want_step = CLS_SEG_LAUNCHES[label]
+    zeros = {k: 0 for k in _cuda.LAUNCHES}
+    check(fwd_launches == {**zeros, **want_fwd},
+          f"{label}: one eval forward launched {fwd_launches}")
+    want_shape = (CLS_SEG_BATCH, len(shapes.SHAPE_CLASSES)) if task == "cls" else (
+        CLS_SEG_BATCH, n_points, 4)
+    check(tuple(logits.shape) == want_shape and bool(torch.isfinite(logits).all()),
+          f"{label}: eval logits {tuple(logits.shape)} finite")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i, batch in enumerate(batches):
+        if i == 0:
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(cls_seg_train.cls_seg_train_step(cfg, state, batch)["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        if i == 0:
+            step_launches = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(step_launches == {**zeros, **want_step},
+          f"{label}: one train step launched {step_launches}")
+    losses = torch.stack(losses).cpu().numpy()
+    check(len(losses) == CLS_SEG_STEPS and bool(np.all(np.isfinite(losses))),
+          f"{label}: {CLS_SEG_STEPS} train steps at batch {CLS_SEG_BATCH}, losses finite "
+          f"({', '.join(f'{v:.4f}' for v in losses)})")
+    grads = []
+    gen_state = state.generator.get_state()
+    for _ in range(2):
+        state.generator.set_state(gen_state)
+        grads.append(cls_seg_train.cls_seg_loss_and_grads(cfg, state, batches[0])[2])
+        discard_batch_stats(model)
+    check(all(torch.equal(a, b) for a, b in zip(*grads)),
+          f"{label}: the same step from one state twice gives bit-identical gradients")
+    del grads
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(xyz, feat), reps=5)
+        fwd_b1_ms = time_ms(forward_b1, reps=10)
+        _, device = profile_device_events(lambda: model(xyz, feat))
+        fwd_prof = summarize_device_events(device)
+    _, device = profile_device_events(
+        lambda: cls_seg_train.cls_seg_train_step(cfg, state, batches[1]))
+    step_prof = summarize_device_events(device)
+    step = statistics.median(step_ms[1:])  # the first step warms the backward
+    log(f"{label}: forward {fwd_ms:.2f} ms at B={CLS_SEG_BATCH}, {fwd_b1_ms:.2f} ms at B=1; train "
+        f"step {step:.2f} ms ({step_prof['device_launches']} device launches, idle "
+        f"{step_prof['idle_share']:.3f}); peak {peak / 2**30:.2f} GiB")
+    return {
+        "config": f"{task}, {n_points} points, batch {CLS_SEG_BATCH}, float32 (TF32 off), "
+                  "seeded random weights, procedural data",
+        "launches_forward": fwd_launches, "launches_train_step": step_launches,
+        "losses": losses.tolist(), "forward_ms_b32": fwd_ms, "forward_ms_b1": fwd_b1_ms,
+        "forward_profile": fwd_prof, "train_step_ms": step, "train_step_ms_runs": step_ms,
+        "train_clouds_per_s": CLS_SEG_BATCH / step * 1e3, "train_step_profile": step_prof,
+        "peak_memory_bytes": peak,
+    }
+
+
+def cls_seg_cli_drive(work: str) -> dict:
+    """train_net_torch.py --model cls and --model semseg for one epoch of two
+    batches of 32 on procedural data, at the recipes' point counts; the
+    pickle loads into the port."""
+    out = {}
+    for task, n_points in (("cls", 1024), ("semseg", 4096)):
+        log_dir = str(Path(work, task))
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = train_net_torch.main(["--do_train", "--model", task, "--dataset", "synthetic",
+                                       "--num_points", str(n_points), "--batch_size", "32",
+                                       "--synthetic_batches", "2", "--num_epochs", "1",
+                                       "--log_dir", log_dir])
+        line = text.getvalue().strip().splitlines()[-1]
+        log(f"train_net_torch.py --model {task}: {line}")
+        with open(Path(log_dir, "cls_seg_state.pkl"), "rb") as f:
+            tree = pickle.load(f)
+        load_flax_variables(cls_seg_model(task, cls_seg_models.CLS_SSG if task == "cls"
+                                          else cls_seg_models.SEM_SSG), tree)
+        check(rc == 0 and line.startswith("epoch 0: loss="),
+              f"train_net_torch.py --model {task} exits 0; its pickle loads into the port")
+        out[task] = {"seconds": time.perf_counter() - t0, "epoch_line": line}
+    return out
+
+
+def cls_seg_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {"cases": cls_seg_kernel_cases()}
+    out["small_card_vs_cpu"] = cls_seg_small_card_vs_cpu()
+    for label in CLS_SEG_CELLS:
+        out[label] = cls_seg_drive(label)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        out["cli"] = cls_seg_cli_drive(work)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2318,6 +2637,9 @@ def main() -> int:
     parser.add_argument("--posenet", action="store_true",
                         help="run phase 10 alone (PoseResNet odometry and training, no kernel "
                              "build); prints its metrics and no ok line")
+    parser.add_argument("--cls_seg", action="store_true",
+                        help="build, then phase 11 alone (the PointNet++ cls/semseg family at "
+                             "full width); prints its metrics and no ok line")
     parser.add_argument("--slam", action="store_true",
                         help="build, the SLAM kernel cases of phase 2, then phase 8 alone with a "
                              "checkpoint of seeded random weights; prints its metrics and no ok "
@@ -2353,6 +2675,13 @@ def main() -> int:
     for line in _cuda.build_log().splitlines():
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
+
+    if args.cls_seg:
+        log("phase 11 alone: the PointNet++ cls/semseg family at full width")
+        cls_seg = cls_seg_phase()
+        print(card_line())
+        print(json.dumps({"cls_seg": cls_seg}))
+        return 0
 
     log(f"generating a {N_FRAMES}-frame corridor sequence at 8192 points")
     t0 = time.perf_counter()
@@ -2438,6 +2767,11 @@ def main() -> int:
     log("phase 10: PoseResNet odometry and training at full width")
     pn_metrics = posenet_phase()
 
+    log("phase 11: the PointNet++ cls/semseg family at full width")
+    cls_seg = cls_seg_phase()
+    for name, rows in cls_seg["cases"].items():
+        cases[name] += rows
+
     kernels = []
     slam_icp = slam["slam-icp-loop"]["launches"]
     slam_deep = slam["slam-pwclonet-loop"]["launches"]
@@ -2456,6 +2790,10 @@ def main() -> int:
             "launches_train_path": train["launches"][kernel],
             "launches_slam_icp_path": slam_icp[kernel],
             "launches_slam_pwclonet_path": slam_deep[kernel],
+            "launches_cls_seg_paths": {
+                label: {"forward": cls_seg[label]["launches_forward"][kernel],
+                        "train_step": cls_seg[label]["launches_train_step"][kernel]}
+                for label in CLS_SEG_CELLS},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
@@ -2476,7 +2814,8 @@ def main() -> int:
         **{label: {**main[label], **times[label]} for label in odos},
         "train": {**train, **train_times}, "learning_recipe": learning,
         "profile": profiles, "icp": icp_metrics, "slam": slam, "ct_icp": ct_metrics,
-        "posenet": pn_metrics, "total_s": time.perf_counter() - t_start,
+        "posenet": pn_metrics, "cls_seg": {k: v for k, v in cls_seg.items() if k != "cases"},
+        "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
     print(json.dumps({"metrics": metrics}))
@@ -2504,6 +2843,8 @@ def main() -> int:
     finite += [pn_metrics["train"]["times"][p]["train_step_ms"] for p in ("fp32", "tf32")]
     finite += [pn_metrics["odometry"][key] for key in ("forward_ms_b1",
                                                        "process_next_frame_ms_median")]
+    finite += [cls_seg[label][key] for label in CLS_SEG_CELLS
+               for key in ("forward_ms_b32", "forward_ms_b1", "train_step_ms")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
     check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
           "six kernels and the masked kNN, each launched on its main path")

@@ -216,10 +216,22 @@ struct Launch {
   }
   Launch(const Launch&) = delete;  // config points into this object
 
-  // Above 48 KB a kernel has to be allowed its dynamic shared memory.
-  template <typename Kernel>
-  cudaError_t allow_shared_memory(Kernel kernel) const {
-    if (config.dynamicSmemBytes <= 48 * 1024) return cudaSuccess;
+  // Above 48 KB of shared memory in all, static (the slots) and dynamic (the
+  // points: 48 KB at 4,096 of them), a kernel has to be allowed its dynamic
+  // shared memory. The static size is queried once a kernel.
+  template <int PER, bool CLUSTER, bool SKELETON>
+  cudaError_t allow_shared_memory() const {
+    auto kernel = fps_kernel<PER, CLUSTER, SKELETON>;
+    static std::atomic<long long> static_bytes{-1};
+    long long bytes = static_bytes.load(std::memory_order_relaxed);
+    if (bytes < 0) {
+      cudaFuncAttributes attributes = {};
+      cudaError_t err = cudaFuncGetAttributes(&attributes, kernel);
+      if (err != cudaSuccess) return err;
+      bytes = static_cast<long long>(attributes.sharedSizeBytes);
+      static_bytes.store(bytes, std::memory_order_relaxed);
+    }
+    if (static_cast<size_t>(bytes) + config.dynamicSmemBytes <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(config.dynamicSmemBytes));
   }
@@ -230,7 +242,7 @@ int launch_as(const float* points, const float* mask, int b, int n, int npoint, 
               int cluster, int threads, cudaStream_t stream) {
   auto kernel = fps_kernel<PER, CLUSTER, SKELETON>;
   const Launch cfg(b, cluster, threads, n, stream);
-  cudaError_t err = cfg.allow_shared_memory(kernel);
+  cudaError_t err = cfg.allow_shared_memory<PER, CLUSTER, SKELETON>();
   if (err == cudaSuccess) {
     err = cudaLaunchKernelEx(&cfg.config, kernel, points, mask, n, npoint, out);
   }
@@ -253,7 +265,7 @@ int clusters_at_once(int n, int cluster, int threads) {
   auto kernel = fps_kernel<PER, true, false>;
   const Launch cfg(1, cluster, threads, n, nullptr);
   int count = 0;
-  if (cfg.allow_shared_memory(kernel) != cudaSuccess ||
+  if (cfg.allow_shared_memory<PER, true, false>() != cudaSuccess ||
       cudaOccupancyMaxActiveClusters(&count, kernel, &cfg.config) != cudaSuccess) {
     cudaGetLastError();  // cleared: the card holds none, and one block a sample it is
     count = 0;

@@ -96,6 +96,30 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     return model
 
 
+def flax_variables(model: nn.Module) -> Dict:
+    """The Flax variable tree ``{"params", "batch_stats"}`` of ``model``, as
+    nested dicts of numpy arrays: the inverse of :func:`load_flax_variables`
+    for networks of ``PointMLP``s and ``Dense_i`` layers (the PointNet++
+    cls/seg family), whose leaves keep their names. Raises on any other
+    leaf."""
+    flat: Dict[str, np.ndarray] = {}
+    buffers = dict(model.named_buffers())
+    for key, t in [*model.named_parameters(), *buffers.items()]:
+        *parents, leaf = key.split(".")
+        parent = parents[-1] if parents else ""
+        if parent.startswith(("Conv_", "BatchNorm_")):
+            raise KeyError(f"{key!r}: only PointMLP and Dense leaves are written back")
+        if parent.startswith("Dense_") and leaf == "weight":
+            leaf = "kernel"
+        path = "/".join(["batch_stats" if key in buffers else "params", *parents, leaf])
+        torch_key, perm = _torch_key(path)
+        if torch_key != key:
+            raise KeyError(f"{key!r} has no Flax path that maps back to it")
+        value = t.detach().cpu().numpy().copy()  # not a view of the live tensor
+        flat[path] = value if perm is None else value.transpose(perm)  # (1, 0): its own inverse
+    return unflatten_variables(flat)
+
+
 def unflatten_variables(flat: Mapping[str, np.ndarray]) -> Dict:
     """The inverse of :func:`flatten_variables`."""
     tree: Dict = {}

@@ -147,6 +147,17 @@ def discard_batch_stats(module: nn.Module) -> None:
         m.pending.clear()
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout whose mask is drawn from ``generator`` (on ``x``'s device; the
+    default generator when None), kept entries scaled by ``1 / (1 - rate)``;
+    the identity in eval mode or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep / (1.0 - rate)
+
+
 class LinearHead(nn.Module):
     """Plain linear layer (no activation, xavier-uniform weight)."""
 

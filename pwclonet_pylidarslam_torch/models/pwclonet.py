@@ -36,7 +36,12 @@ from pwclonet_pylidarslam_torch.core import rotation as rot
 from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.device import resolve_device
 from pwclonet_pylidarslam_torch.models.costvolume import CostVolume
-from pwclonet_pylidarslam_torch.models.layers import LinearHead, PointMLP, discard_batch_stats
+from pwclonet_pylidarslam_torch.models.layers import (
+    LinearHead,
+    PointMLP,
+    discard_batch_stats,
+    dropout,
+)
 from pwclonet_pylidarslam_torch.models.pointnet2 import SetConv, SetUpConv
 
 _EMB = 64  # flow-embedding / mask width of the reference channel plan
@@ -78,10 +83,7 @@ class PoseCalculator(nn.Module):
 
     def _dropout(self, x: torch.Tensor, train: bool,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not train or self.dropout_rate == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
-        return x * keep / (1.0 - self.dropout_rate)
+        return dropout(x, self.dropout_rate, train, generator)
 
     def forward(self, features, mask, train: bool = False,
                 generator: Optional[torch.Generator] = None):

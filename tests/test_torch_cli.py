@@ -175,7 +175,6 @@ def test_train_net_torch_posenet_train_then_test(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option,item", [
-    ("model=cls", "ROADMAP Queue A 8"), ("model=semseg", "ROADMAP Queue A 8"),
     ("dataset=synthetic_world", "ROADMAP Queue A 9"), ("dataset=kitti360", "ROADMAP Queue A 9"),
 ])
 def test_train_net_torch_unported_options_raise(tmp_path, option, item):

@@ -38,6 +38,9 @@ def cuda_device():
     (2, 8192, 2048), (2, 2048, 1024), (2, 1024, 256), (2, 256, 64), (2, 300, 50), (1, 1, 3),
     (3, 4097, 300), (2, 5000, 700), (1, 16384, 512), (2, 12345, 200), (18, 8192, 256),
     (18, 2048, 256),
+    # one block a sample whose points and slots pass 48 KB of shared memory
+    # (semseg's first stage samples 4,096 points)
+    (32, 4096, 1024), (2, 4060, 100),
 ])
 def test_fps_kernel_matches_plain(cuda_device, rng, b, n, npoint):
     pts = torch.from_numpy((rng.normal(size=(b, n, 3)) * 10).astype(np.float32)).to(cuda_device)
@@ -752,3 +755,80 @@ def test_posenet_forward_card_against_cpu(cuda_device, rng):
         want = cpu(x)
         got = card(x.to(cuda_device))
     assert (got.cpu() - want).abs().max() <= 1e-4
+
+
+# ---- the PointNet++ cls/semseg family --------------------------------------
+
+
+@pytest.mark.cuda
+def test_ball_query_card_equals_cpu(cuda_device, rng):
+    """Plain PyTorch on both: the same products and sums in the same order,
+    so the same indices; at semseg's first stage (1,024 centres among 4,096
+    points, r = 0.1, 32 samples; rooms in the unit cube)."""
+    pts = torch.from_numpy(rng.uniform(0, 1, size=(2, 4096, 3)).astype(np.float32))
+    centers = pts[:, :1024].clone()
+    mask = torch.from_numpy((rng.random((2, 4096)) > 0.2).astype(np.float32))
+    for m in (None, mask):
+        ref = ops.ball_query(centers, pts, 0.1, 32, m)
+        out = ops.ball_query(centers.to(cuda_device), pts.to(cuda_device), 0.1, 32,
+                             None if m is None else m.to(cuda_device))
+        assert out.dtype == torch.int32 and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n", [(32, 4096, 1024), (32, 1024, 256), (32, 64, 16), (3, 100, 5)])
+def test_three_nn_kernel_matches_plain(cuda_device, rng, b, s, n):
+    """k=3 at the shapes of semseg's feature propagation, with coincident
+    points (the coarse cloud is a subset of the fine one)."""
+    fine = torch.from_numpy(rng.uniform(0, 1, size=(b, s, 3)).astype(np.float32)).to(cuda_device)
+    coarse = fine[:, :n].contiguous()
+    _cuda.reset_launch_counts()
+    d, i = ops.three_nn(fine, coarse)
+    assert _cuda.launch_counts()["knn"] == 1
+    pd, pi = knn_plain(fine, coarse, 3)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    assert bool((d[:, :n, 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [9, 131, 256, 259, 323, 512])
+def test_gather_and_scatter_add_at_wide_rows(cuda_device, rng, c):
+    """The widths of the cls/semseg groupings and interpolations (above 256
+    columns a thread's step is the carry alone): the gather bit-exact, its
+    scatter-add ``torch.equal`` to the plain version on the CPU, with the
+    long segments the ball query's first-hit padding makes."""
+    b, n, m = 4, 512, 4096
+    src = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(cuda_device)
+    idx = rng.integers(0, n, size=(b, m)).astype(np.int32)
+    idx[:, : m // 2] = idx[:, :1]  # one row collects half the updates
+    idx = torch.from_numpy(idx).to(cuda_device)
+    assert torch.equal(tgather.gather_points(src, idx), tgather.gather_points_plain(src, idx))
+    upd = torch.from_numpy(rng.normal(size=(b, m, c)).astype(np.float32)).to(cuda_device)
+    out = tgather.scatter_add_rows(upd, idx, n)
+    assert torch.equal(out.cpu(), tgather.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["cls", "semseg"])
+def test_cls_seg_models_card_against_cpu(cuda_device, task):
+    """Tiny plans (tests/test_cls_seg.py's) on the card against the CPU:
+    eval logits within atol 1e-4 / rtol 1e-4 (other reduction orders)."""
+    from pwclonet_pylidarslam_torch.models import cls_seg
+
+    if task == "cls":
+        stages = (cls_seg.SAStage(32, (0.5, 1.0), (8, 16), ((16, 32), (16, 32))),
+                  cls_seg.SAStage(None, (None,), (None,), ((32, 64),)))
+        cpu = cls_seg.PointNet2Classification(5, stages, head=(32,), device="cpu")
+        gpu = cls_seg.PointNet2Classification(5, stages, head=(32,), device=cuda_device)
+        x, f = torch.rand(4, 256, 3) * 2 - 1, None
+    else:
+        stages = (cls_seg.SAStage(32, (0.5,), (8,), ((16, 32),)),
+                  cls_seg.SAStage(8, (1.0,), (8,), ((32, 64),)))
+        cpu = cls_seg.PointNet2Segmentation(4, stages, 32, 16, in_channels=6, device="cpu")
+        gpu = cls_seg.PointNet2Segmentation(4, stages, 32, 16, in_channels=6, device=cuda_device)
+        x, f = torch.rand(2, 256, 3), torch.rand(2, 256, 6)
+    gpu.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        ref = cpu(x, f)
+        out = gpu(x.to(cuda_device), None if f is None else f.to(cuda_device))
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)

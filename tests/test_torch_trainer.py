@@ -160,7 +160,7 @@ def test_train_net_torch_cli(tmp_path):
     assert read_poses_txt(str(tmp_path / "test" / "09_gt.poses.txt")).shape == (16, 4, 4)
     assert "ATE" in read_metrics_yaml(str(tmp_path / "test" / "metrics.yaml"))["09"]
     assert (tmp_path / "test" / "09_eval" / "09_error.txt").exists()
-    for option in (("model=cls",), ("--dataset", "synthetic_world"), ("dataset=kitti360",)):
+    for option in (("--dataset", "synthetic_world"), ("dataset=kitti360",)):
         run = _cli("--do_train", *option)
         assert run.returncode != 0 and "ROADMAP" in run.stderr
     assert _cli().returncode == 2  # neither do_train nor do_test: the usage

@@ -145,32 +145,43 @@ def step_profile(run) -> dict:
     return out
 
 
-def recorded_calls(gather_mod, run) -> dict:
-    """``run()`` with the gather and scatter-add CUDA wrappers of
-    ``gather_mod`` wrapped: ``{"gather" | "scatter_add": {(B, N, M, C):
-    [launches, the first call's int32 index (B, M)]}}`` in order of first
-    call."""
-    calls = {"gather": {}, "scatter_add": {}}
-    gather_cuda, scatter_cuda = gather_mod._gather_points_cuda, gather_mod._scatter_add_rows_cuda
+def recorded_calls(targets: dict, run) -> dict:
+    """``run()`` with CUDA wrappers replaced by recording ones. ``targets``
+    maps a kind to ``(module, attribute name, key)``, where ``key(*args)``
+    names the shape of a call. Returns ``{kind: {shape: [launches, the first
+    call's positional arguments, its keyword arguments]}}`` in order of
+    first call; the tensors among the positional arguments are cloned."""
+    calls = {kind: {} for kind in targets}
+    saved = {kind: getattr(mod, attr) for kind, (mod, attr, _) in targets.items()}
 
-    def note(kind, key, idx):
-        calls[kind].setdefault(key, [0, idx.detach().clone()])[0] += 1
+    def recording(kind, key):
+        def call(*args, **kwargs):
+            entry = calls[kind].setdefault(key(*args), [0, None, kwargs])
+            entry[0] += 1
+            if entry[1] is None:
+                entry[1] = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                 for a in args)
+            return saved[kind](*args, **kwargs)
+        return call
 
-    def gather(src, idx):
-        note("gather", (src.shape[0], src.shape[1], idx.shape[1], src.shape[2]), idx)
-        return gather_cuda(src, idx)
-
-    def scatter(updates, idx, n):
-        note("scatter_add", (updates.shape[0], n, updates.shape[1], updates.shape[2]), idx)
-        return scatter_cuda(updates, idx, n)
-
-    gather_mod._gather_points_cuda, gather_mod._scatter_add_rows_cuda = gather, scatter
+    for kind, (mod, attr, key) in targets.items():
+        setattr(mod, attr, recording(kind, key))
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        gather_mod._gather_points_cuda, gather_mod._scatter_add_rows_cuda = gather_cuda, scatter_cuda
+        for kind, (mod, attr, _) in targets.items():
+            setattr(mod, attr, saved[kind])
     return calls
+
+
+def gather_targets(gather_mod) -> dict:
+    """The gather and scatter-add wrappers of ``ops/gather.py``, keyed by
+    ``(B, N, M, C)``."""
+    return {"gather": (gather_mod, "_gather_points_cuda",
+                       lambda src, idx: (src.shape[0], src.shape[1], idx.shape[1], src.shape[2])),
+            "scatter_add": (gather_mod, "_scatter_add_rows_cuda",
+                            lambda upd, idx, n: (upd.shape[0], n, upd.shape[1], upd.shape[2]))}
 
 
 def gather_row(gather_ops, key: tuple, launches: int, idx: torch.Tensor, reps: int,
@@ -215,43 +226,25 @@ def weighted_sums(rows: list, keys=("ms", "cold_ms", "bound_ms", "library_ms")) 
             **{key: sum(r["launches"] * r[key] for r in rows) for key in keys}}
 
 
-def recorded_fused_calls(cv_mod, mlp_mod, run) -> dict:
-    """``run()`` with the fused kernels' CUDA wrappers of ``cv_mod``
-    (``ops/costvolume.py``) and ``mlp_mod`` (``ops/mlp.py``) wrapped:
-    ``{"attentive_aggregate" | "mlp_maxpool": {shape: [launches, the first
-    call's arguments]}}`` in order of first call; a shape names every width
-    of the call, its stacks' included."""
-    calls = {"attentive_aggregate": {}, "mlp_maxpool": {}}
-    agg_cuda, mlp_cuda = cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda
-
+def fused_targets(cv_mod, mlp_mod) -> dict:
+    """The fused kernels' wrappers of ``ops/costvolume.py`` and
+    ``ops/mlp.py``; a shape names every width of the call, its stacks'
+    included."""
     def widths(wb):
         return ",".join(str(w.shape[1]) for w in wb[0])
 
-    def note(kind, key, args):
-        calls[kind].setdefault(key, [0, args])[0] += 1
-
     def aggregate(cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center):
         b, s, k, _ = gxyz.shape
-        key = (f"{'self' if center else 'cross'} B={b} S={s} K={k} Cc={cfeat.shape[-1]} "
-               f"Cg={gfeat.shape[-1]} enc({widths(enc_wb)}) "
-               f"emb({'' if emb_wb is None else widths(emb_wb)}) att({widths(att_wb)})")
-        note("attentive_aggregate", key, (cxyz.clone(), gxyz.clone(), cfeat.clone(),
-                                          gfeat.clone(), enc_wb, emb_wb, att_wb, center))
-        return agg_cuda(cxyz, gxyz, cfeat, gfeat, enc_wb, emb_wb, att_wb, center)
+        return (f"{'self' if center else 'cross'} B={b} S={s} K={k} Cc={cfeat.shape[-1]} "
+                f"Cg={gfeat.shape[-1]} enc({widths(enc_wb)}) "
+                f"emb({'' if emb_wb is None else widths(emb_wb)}) att({widths(att_wb)})")
 
     def mlp(x, *stack):  # (x, wb), or (x, weights, biases) in older trees
         b, s, k, cin = x.shape
-        key = f"B={b} S={s} K={k} Cin={cin} ({widths(stack[0] if len(stack) == 1 else stack)})"
-        note("mlp_maxpool", key, (x.clone(), *stack))
-        return mlp_cuda(x, *stack)
+        return f"B={b} S={s} K={k} Cin={cin} ({widths(stack[0] if len(stack) == 1 else stack)})"
 
-    cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda = aggregate, mlp
-    try:
-        run()
-        torch.cuda.synchronize()
-    finally:
-        cv_mod._attentive_aggregate_cuda, mlp_mod._mlp_maxpool_cuda = agg_cuda, mlp_cuda
-    return calls
+    return {"attentive_aggregate": (cv_mod, "_attentive_aggregate_cuda", aggregate),
+            "mlp_maxpool": (mlp_mod, "_mlp_maxpool_cuda", mlp)}
 
 
 def fused_row(kind: str, kernel, plain, key: str, launches: int, args: tuple, reps: int) -> dict:
@@ -345,8 +338,9 @@ def main() -> int:
                  "gt_params": se3.pose_to_params_quat(pose).numpy().astype(np.float32)}
         cfg = tstate.TrainConfig(model=PWCLONetConfig(), total_steps=1000)
         state = tstate.create_train_state(cfg, seed=0)
-        fwd = recorded_calls(gather_mod, forward)
-        step = recorded_calls(gather_mod, lambda: tstate.loss_and_grads(cfg, state, batch))
+        fwd = recorded_calls(gather_targets(gather_mod), forward)
+        step = recorded_calls(gather_targets(gather_mod),
+                              lambda: tstate.loss_and_grads(cfg, state, batch))
         out["train_step_profile"] = step_profile(lambda: tstate.loss_and_grads(cfg, state, batch))
         del state
         torch.cuda.empty_cache()
@@ -357,8 +351,8 @@ def main() -> int:
                 ("scatter_add_train_step", "scatter_add", step, scatter_row)):
             if kind not in wanted:
                 continue
-            out[name] = [row_fn(gather_mod, key, launches, idx, args.reps, flush)
-                         for key, (launches, idx) in calls[kind].items()]
+            out[name] = [row_fn(gather_mod, key, launches, call[1], args.reps, flush)
+                         for key, (launches, call, _) in calls[kind].items()]
             out[f"{name}_sums"] = weighted_sums(out[name])
         if "scatter_add" in wanted:
             # not a path shape: the level-2 grouping's size with one row of
@@ -379,7 +373,7 @@ def main() -> int:
                 odo.model(both[1:2], both[0:1])
 
         fused_forward()  # folds (and lays out) the weights once, as a running odometry has
-        calls = recorded_fused_calls(cv_mod, mlp_mod, fused_forward)
+        calls = recorded_calls(fused_targets(cv_mod, mlp_mod), fused_forward)
         out["fused_forward_profile"] = fused_profile(fused_forward)
         kernels = {"attentive_aggregate": (cv_mod._attentive_aggregate_cuda,
                                            cv_mod.attentive_aggregate_plain),
@@ -387,7 +381,7 @@ def main() -> int:
         with torch.inference_mode():
             for kind in fused:
                 out[kind] = [fused_row(kind, *kernels[kind], key, launches, call, args.reps)
-                             for key, (launches, call) in calls[kind].items()]
+                             for key, (launches, call, _) in calls[kind].items()]
                 out[f"{kind}_sums"] = weighted_sums(out[kind], (
                     "ms", "plain_ms", "bound_fp32_ms", "bound_tf32x3_ms", "bound_bytes_ms"))
 
