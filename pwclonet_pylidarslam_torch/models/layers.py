@@ -40,6 +40,8 @@ class PointMLP(nn.Module):
     ``in_features`` is explicit (Flax infers it at init). ``dtype=
     torch.bfloat16`` runs the unfused matmuls in bf16 (inputs and kernel cast,
     BatchNorm in float32, activations cast back; the result is float32).
+    Without ``dtype`` the result has the input's dtype, so that a float64
+    model on float64 inputs runs in float64 throughout.
     With ``fused=True`` the MLP + max-pool block of a 4-d input runs as one
     float32 kernel on the BN-folded weights, whatever ``dtype`` is; the fused
     kernel has no backward, so ``train=True`` takes the unfused graph.
@@ -104,7 +106,8 @@ class PointMLP(nn.Module):
             if self.dtype is not None:
                 h = h.to(self.dtype)
             x = torch.relu(h)
-        x = x.float()
+        if self.dtype is not None:
+            x = x.float()
         if maxpool:
             x = torch.amax(x, dim=-2)
         return x

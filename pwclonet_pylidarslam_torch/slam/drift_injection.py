@@ -96,7 +96,8 @@ def run_drift_scenario(with_backend: bool, n_frames: int = 80, seed: int = 5,
         SyntheticSequenceConfig(
             n_frames=n_frames, trajectory="there_and_back", speed=1.6, seed=seed,
             num_points=2048,
-        )
+        ),
+        device=device,
     )
     lc_cfg = LoopClosureConfig(
         submap_size=6, overlap=2, min_id_distance=20, max_distance=30.0,

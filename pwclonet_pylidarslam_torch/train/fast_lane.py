@@ -33,10 +33,10 @@ N_POINTS = 256
 SMALL = PWCLONetConfig(num_points=N_POINTS, sa_npoints=(64, 32, 16, 8), sa_nsamples=(8, 8, 8, 4))
 
 
-def _world(seed: int, frames: int = 26):
+def _world(seed: int, device, frames: int = 26):
     return generate_sequence(SyntheticSequenceConfig(
         n_frames=frames, trajectory="curve", world="along_path",
-        num_beams=16, num_cols=256, num_points=2048, seed=seed))
+        num_beams=16, num_cols=256, num_points=2048, seed=seed), device=device)
 
 
 def _odometry_ate(variables: Mapping, scans: np.ndarray, gt: np.ndarray, device):
@@ -60,7 +60,7 @@ def run_fast_lane_recipe(
     world), "travel", "ratio" (mean ATE over mean per-frame travel),
     "untrained_ate", "finite", "steps"}``. ``init_tree``: a reference train
     state (``models/convert.py``) to start from in place of the seeded init."""
-    train_seqs = [_world(s) for s in (1, 2)]
+    train_seqs = [_world(s, device) for s in (1, 2)]
     ds = SyntheticPairDataset(train_seqs, num_points=N_POINTS, augment=False, seed=0)
     total = epochs * (len(ds) // 8)
     cfg = TrainConfig(model=SMALL, total_steps=total, learning_rate=lr,
@@ -77,7 +77,7 @@ def run_fast_lane_recipe(
         logs = train_steps(cfg, state, block)
         losses.append(float(logs["loss"].mean()))
 
-    heldout = [_world(seed=s) for s in (9, 10)]
+    heldout = [_world(s, state.device) for s in (9, 10)]
     trained = state.state_dict()
     ates, travels, finite = [], [], True
     for scans, gt in heldout:

@@ -128,7 +128,8 @@ def build_sources(config: RunConfig) -> dict:
                     trajectory=config.synthetic_trajectory,
                     seed=int(s),
                     num_points=config.num_points,
-                )
+                ),
+                device=config.device,
             )
             gps = None
             if config.gps:

@@ -108,9 +108,9 @@ def _modules(impl: str):
 def first_step(impl: str, k: int, device: str = "cpu") -> dict:
     """Frames 0 and 1 of the scenario's biased ICP odometry."""
     synthetic, di, icp = _modules(impl)
-    scans, gt = synthetic.generate_sequence(synthetic.SyntheticSequenceConfig(
-        n_frames=80, trajectory="there_and_back", speed=1.6, seed=5, num_points=2048))
     kwargs = {} if impl == "ref" else {"device": device}
+    scans, gt = synthetic.generate_sequence(synthetic.SyntheticSequenceConfig(
+        n_frames=80, trajectory="there_and_back", speed=1.6, seed=5, num_points=2048), **kwargs)
     odo = di.DriftingICPOdometry(icp.ICPConfig(num_points=2048, initial_assoc_distance=8.0),
                                  di.yaw_bias(), **kwargs)
     odo.init()
@@ -127,8 +127,8 @@ def scenario(impl: str, k: int, device: str = "cpu") -> dict:
     generate = synthetic.generate_sequence
     truth = []
 
-    def nudged(cfg):
-        scans, gt = generate(cfg)
+    def nudged(cfg, **kw):
+        scans, gt = generate(cfg, **kw)
         truth.append(gt)
         return nudge(scans, k), gt
 

@@ -74,7 +74,7 @@ def distorted():
     3, rolling shutter) at 6 frames of 2048 points."""
     return generate_sequence_with_times(SyntheticSequenceConfig(
         n_frames=6, trajectory="curve", speed=2.5, yaw_rate_deg=2.0, seed=3,
-        motion_distortion=True, num_points=NP))
+        motion_distortion=True, num_points=NP), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -273,7 +273,7 @@ def test_reference_accuracy_gates_at_full_size():
 
     scans, times, gt = generate_sequence_with_times(SyntheticSequenceConfig(
         n_frames=12, trajectory="curve", speed=2.5, yaw_rate_deg=2.0, seed=3,
-        motion_distortion=True))
+        motion_distortion=True), device="cpu")
 
     def run(odo, *args):
         odo.init()
@@ -290,7 +290,7 @@ def test_reference_accuracy_gates_at_full_size():
     assert run(CTICPOdometry(CTICPConfig(), device="cpu"), scans) < 0.03
     assert run(CTICPOdometry(CTICPConfig(elastic=False), device="cpu"), scans, times) < 0.10
     scans, times, gt = generate_sequence_with_times(SyntheticSequenceConfig(
-        n_frames=10, trajectory="curve", speed=1.0, seed=5, motion_distortion=False))
+        n_frames=10, trajectory="curve", speed=1.0, seed=5, motion_distortion=False), device="cpu")
     assert run(CTICPOdometry(CTICPConfig(elastic=False), device="cpu"), scans, times) < 0.01
 
 

@@ -439,6 +439,31 @@ def _icp_scans(n_frames=6, num_points=2048):
 
 
 @pytest.mark.cuda
+def test_frame_raycaster_card_equals_cpu(cuda_device):
+    """The KITTI-profile world's 64 x 720 sweeps, with their traffic, cast on
+    the card and on the CPU: they may differ only at borderline rays
+    (``tools/cast_check.py``); the same IEEE operations leave none."""
+    from pwclonet_pylidarslam_torch.data import synthetic as S
+    from tools.cast_check import cast_differences
+
+    trajectory = S.make_trajectory("kitti_drive", 300)
+    rects, dyn = S.kitti_world(trajectory, 3)
+    frames = [40, 200]
+    dyn_rects = [r for t in frames for d in dyn for r in d.rects_at(t)]
+    per = len(dyn_rects) // len(frames)
+    extra = [np.arange(len(rects) + i * per, len(rects) + (i + 1) * per)
+             for i in range(len(frames))]
+    dirs = S.lidar_directions(64, 720, 2.0, -24.8)
+    casters = [S.FrameRaycaster(rects + dyn_rects, n_static=len(rects), device=d)
+               for d in (cuda_device, "cpu")]
+    (r_card, i_card), (r_cpu, i_cpu) = (c.cast_all(trajectory[frames], dirs, extra)
+                                        for c in casters)
+    diff = cast_differences(casters[1].soa, trajectory[frames], dirs, r_card, i_card, r_cpu,
+                            i_cpu)
+    assert diff["unexplained"] == 0 and (i_card >= len(rects)).any(), diff
+
+
+@pytest.mark.cuda
 def test_zbuffer_scatter_card_equals_cpu(cuda_device, rng):
     from pwclonet_pylidarslam_torch.core.projection import SphericalProjector
 

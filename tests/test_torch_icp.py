@@ -37,6 +37,17 @@ from pwclonet_pylidarslam_tpu.slam import icp_odometry as jicp
 from pwclonet_pylidarslam_tpu.slam import local_map as jlm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor ops on one thread (the synthetic caster's among
+    them): with several test workers on one machine, torch's thread pool
+    per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(x):
     return torch.from_numpy(np.array(x))
 
@@ -58,7 +69,7 @@ def ring_cloud(rng, n=5000, rmin=3.0, rmax=80.0):
 def scans4096():
     """The ``sequence`` fixture of tests/test_icp_odometry.py at 4096 points."""
     return generate_sequence(SyntheticSequenceConfig(
-        n_frames=12, trajectory="curve", speed=1.0, seed=2, num_points=4096))
+        n_frames=12, trajectory="curve", speed=1.0, seed=2, num_points=4096), device="cpu")
 
 
 # --- projection --------------------------------------------------------------
@@ -145,7 +156,8 @@ def dense_vertex_map():
     """A dense 64x720 scan of the corridor world, stretched to KITTI's
     reach (ranges up to ~80 m)."""
     scans, _ = generate_sequence(SyntheticSequenceConfig(
-        n_frames=1, seed=2, num_beams=64, num_cols=720, dropout=0.0, num_points=46080))
+        n_frames=1, seed=2, num_beams=64, num_cols=720, dropout=0.0, num_points=46080),
+        device="cpu")
     return np.asarray(jp.SphericalProjector().build_projection_map(jnp.asarray(scans[:1] * 1.05)))
 
 

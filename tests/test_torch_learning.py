@@ -12,10 +12,24 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from pwclonet_pylidarslam_torch.train.fast_lane import SMALL, run_fast_lane_recipe
 from pwclonet_pylidarslam_tpu.models import PWCLONetConfig as JPWCLONetConfig
 from pwclonet_pylidarslam_tpu.train import state as jstate
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor ops on one thread (the synthetic caster's among
+    them): with several test workers on one machine, torch's thread pool
+    per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 _spec = importlib.util.spec_from_file_location(
     "export_flax_checkpoint",

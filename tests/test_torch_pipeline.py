@@ -30,6 +30,18 @@ from pwclonet_pylidarslam_tpu.slam import icp_odometry as jicp
 from pwclonet_pylidarslam_tpu.slam import loop_closure as jlc
 from pwclonet_pylidarslam_tpu.slam import pipeline as jpipe
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor ops on one thread (the synthetic caster's among
+    them): with several test workers on one machine, torch's thread pool
+    per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POINTS = 4096
 SMALL_GRAPH = dict(backend_max_nodes=16, backend_max_edges=32, backend_max_priors=8)
 
@@ -54,7 +66,7 @@ class _Source:
 @pytest.fixture(scope="module")
 def short_sequence():
     return generate_sequence(SyntheticSequenceConfig(
-        n_frames=10, trajectory="curve", speed=1.0, seed=3, num_points=POINTS))
+        n_frames=10, trajectory="curve", speed=1.0, seed=3, num_points=POINTS), device="cpu")
 
 
 def _slam_cfg(mod, **kw):
@@ -284,7 +296,8 @@ def test_drift_first_step_from_one_state(tmp_path, source):
     from pwclonet_pylidarslam_tpu.slam import drift_injection as jdi
 
     scans, gt = generate_sequence(SyntheticSequenceConfig(
-        n_frames=80, trajectory="there_and_back", speed=1.6, seed=5, num_points=2048))
+        n_frames=80, trajectory="there_and_back", speed=1.6, seed=5, num_points=2048),
+        device="cpu")
     cfg = dict(num_points=2048, initial_assoc_distance=8.0)
 
     def port():

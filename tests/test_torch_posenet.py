@@ -73,7 +73,8 @@ def to_numpy(tree):
 
 @pytest.fixture(scope="module")
 def scans():
-    return generate_sequence(SyntheticSequenceConfig(n_frames=6, num_points=2048, seed=1))
+    return generate_sequence(SyntheticSequenceConfig(n_frames=6, num_points=2048, seed=1),
+                             device="cpu")
 
 
 @pytest.fixture(scope="module")

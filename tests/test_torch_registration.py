@@ -28,6 +28,17 @@ from pwclonet_pylidarslam_tpu.slam import initialization as jinit
 from pwclonet_pylidarslam_tpu.slam import preprocessing as jpre
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor ops on one thread (the synthetic caster's among
+    them): with several test workers on one machine, torch's thread pool
+    per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(x):
     return torch.from_numpy(np.array(x))
 
@@ -39,7 +50,8 @@ def N(x):
 @pytest.fixture(scope="module")
 def scan_pair():
     scans, gt = generate_sequence(SyntheticSequenceConfig(
-        n_frames=2, trajectory="curve", speed=1.5, yaw_rate_deg=6.0, seed=4, num_points=4096))
+        n_frames=2, trajectory="curve", speed=1.5, yaw_rate_deg=6.0, seed=4, num_points=4096),
+        device="cpu")
     return scans, gt
 
 
@@ -194,7 +206,8 @@ def test_preprocessing_matches_reference(rng):
 @pytest.mark.parametrize("kw", [dict(), dict(association="voxel", voxel_rebuild_every=2)],
                          ids=["projective", "voxel_lazy"])
 def test_snapshot_round_trip_is_bit_identical(tmp_path, kw):
-    scans, _ = generate_sequence(SyntheticSequenceConfig(n_frames=3, num_points=2048, seed=1))
+    scans, _ = generate_sequence(SyntheticSequenceConfig(n_frames=3, num_points=2048, seed=1),
+                                 device="cpu")
     cfg = dict(num_points=2048, **kw)
     ref = jicp.ICPOdometry(jicp.ICPConfig(**cfg))
     ref.init()
@@ -229,7 +242,8 @@ def _drift(pred, gt):
 def fast_turn():
     """TestBEVBootstrap's sequence (tests/test_icp_odometry.py), at 4096 points."""
     return generate_sequence(SyntheticSequenceConfig(
-        n_frames=10, trajectory="curve", speed=0.8, yaw_rate_deg=12.0, seed=4, num_points=4096))
+        n_frames=10, trajectory="curve", speed=0.8, yaw_rate_deg=12.0, seed=4, num_points=4096),
+        device="cpu")
 
 
 def _nudged(scans, direction):

@@ -24,6 +24,17 @@ from pwclonet_pylidarslam_tpu.slam import icp_odometry as jicp
 from pwclonet_pylidarslam_tpu.slam import local_map as jlm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor ops on one thread (the synthetic caster's among
+    them): with several test workers on one machine, torch's thread pool
+    per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(x):
     return torch.from_numpy(np.array(x))
 
@@ -241,7 +252,7 @@ def test_fused_voxel_build_matches_oracle():
 @pytest.fixture(scope="module")
 def scans4096():
     return generate_sequence(SyntheticSequenceConfig(
-        n_frames=12, trajectory="curve", speed=1.0, seed=2, num_points=4096))
+        n_frames=12, trajectory="curve", speed=1.0, seed=2, num_points=4096), device="cpu")
 
 
 VOXEL_CASES = {
@@ -276,7 +287,8 @@ def test_voxel_step_from_a_carried_state_matches_reference(tmp_path, scans4096, 
 
 
 def test_voxel_skip_latest_keyframe_single_kf_guard():
-    scans, _ = generate_sequence(SyntheticSequenceConfig(n_frames=3, num_points=4096, seed=5))
+    scans, _ = generate_sequence(SyntheticSequenceConfig(n_frames=3, num_points=4096, seed=5),
+                                 device="cpu")
     cfg = ticp.ICPConfig(num_points=4096, association="voxel")
     assert cfg.voxel_skip_latest_keyframe
     odo = ticp.ICPOdometry(cfg, device="cpu")

@@ -14,6 +14,15 @@ Usage::
     python train_net_torch.py --do_train --dataset synthetic --num_epochs 2 \
         --batch_size 2 --num_points 256 --log_dir ./train_out
 
+    # train on frame pairs of KITTI-profile synthetic worlds (kitti_preset:
+    # 64x720 beams, moving traffic; sequence ids are world seeds, 100 + s for
+    # training, 1100 + s for eval), then test on held-out worlds (2100 + s)
+    python train_net_torch.py --do_train --dataset synthetic_world \
+        --train_sequences 0,1,2,3 --eval_sequences 0 --synthetic_frames 240 \
+        --log_dir ./train_out
+    python train_net_torch.py --do_test --dataset synthetic_world \
+        --test_sequences 9 --fused_eval --log_dir ./train_out
+
     # test: odometry over sequences with the latest checkpoint of log_dir
     python train_net_torch.py --do_test --dataset kitti --root_dir /data/kitti \
         --test_sequences 9,10 --log_dir ./train_out
@@ -52,7 +61,12 @@ from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.core.projection import SphericalProjector
 from pwclonet_pylidarslam_torch.data import shapes
 from pwclonet_pylidarslam_torch.data.kitti import KittiPairDataset, KittiSequence
-from pwclonet_pylidarslam_torch.data.synthetic import SyntheticSequenceConfig, generate_sequence
+from pwclonet_pylidarslam_torch.data.synthetic import (
+    SyntheticPairDataset,
+    SyntheticSequenceConfig,
+    generate_sequence,
+    kitti_preset,
+)
 from pwclonet_pylidarslam_torch.data.vm_pairs import (
     MultiSequenceWindowDataset,
     VertexMapPairDataset,
@@ -88,12 +102,11 @@ from pwclonet_pylidarslam_torch.utils.config import dump_config, parse_cli
 # what train_net.py offers and this entry does not yet, with the ROADMAP item that owns it
 NOT_PORTED = {
     "dataset": {
-        "synthetic_world": "the kitti world and kitti_preset of data/synthetic.py: ROADMAP Queue A 9",
         "kitti360": "data/other_datasets.py: ROADMAP Queue A 9",
     },
 }
 MODELS = ("pwclonet", "posenet", "cls", "semseg")
-DATASETS = ("synthetic", "kitti", "modelnet40", "indoor3d")
+DATASETS = ("synthetic", "synthetic_world", "kitti", "modelnet40", "indoor3d")
 
 
 @dataclasses.dataclass
@@ -101,7 +114,8 @@ class Config:
     do_train: bool = False
     do_test: bool = False
     model: str = "pwclonet"  # pwclonet | posenet | cls | semseg
-    dataset: str = "synthetic"  # synthetic | kitti | modelnet40 (cls) | indoor3d (semseg)
+    # synthetic | synthetic_world | kitti | modelnet40 (cls) | indoor3d (semseg)
+    dataset: str = "synthetic"
     root_dir: str = ""
     train_sequences: str = "0,1,2,3,4,5,6"
     eval_sequences: str = "7,8,9,10"
@@ -114,6 +128,9 @@ class Config:
     augment: bool = True
     seed: int = 0
     synthetic_batches: int = 8  # dataset=synthetic: random-cloud batches per epoch
+    # dataset=synthetic_world: frames per generated world sequence (sequence
+    # ids act as world seeds; train/eval/test use disjoint seed ranges)
+    synthetic_frames: int = 240
     fused_eval: bool = False  # test mode: the fused eval kernels
     posenet_loss: str = "supervised"  # model=posenet: supervised | unsupervised
     # model=posenet: frames a window (2: pairs; more: one pose per pair)
@@ -159,6 +176,28 @@ def make_batch_fns(config: Config):
         eval_data = gen(config.seed + 1)
         return (lambda: iter(train_data)), (lambda: iter(eval_data))
 
+    if config.dataset == "synthetic_world":
+        # frame pairs of KITTI-profile worlds: sequence ids are world seeds;
+        # eval worlds use seed + 1000
+        def make_ds(seed_ids, offset, augment, seed):
+            seqs = [
+                generate_sequence(kitti_preset(n_frames=config.synthetic_frames, seed=offset + s),
+                                  device=config.device)
+                for s in seed_ids
+            ]
+            return SyntheticPairDataset(seqs, num_points=config.num_points, augment=augment,
+                                        seed=seed)
+
+        train_ds = make_ds(_seqs(config.train_sequences), 100, config.augment, config.seed)
+        eval_ds = make_ds(_seqs(config.eval_sequences), 1100, False, config.seed + 1)
+        epoch = [0]
+
+        def train_fn():
+            epoch[0] += 1
+            return train_ds.batches(config.batch_size, shuffle=True, seed=epoch[0])
+
+        return train_fn, (lambda: eval_ds.batches(config.batch_size, shuffle=False))
+
     train_ds = KittiPairDataset(
         config.root_dir, _seqs(config.train_sequences),
         num_points=config.num_points, augment=config.augment, seed=config.seed,
@@ -174,11 +213,16 @@ def make_batch_fns(config: Config):
 
 
 class _SyntheticTestSequence:
-    """A 16-frame corridor sequence from the port's generator."""
+    """A sequence from the port's generator: ``dataset=synthetic``, a
+    16-frame corridor; ``synthetic_world``, a held-out KITTI-profile world
+    (seed 2100 + the sequence id)."""
 
-    def __init__(self, seed: int, num_points: int):
-        self.scans, self.poses = generate_sequence(
-            SyntheticSequenceConfig(n_frames=16, seed=seed, num_points=num_points))
+    def __init__(self, config: Config, s: int):
+        if config.dataset == "synthetic_world":
+            cfg = kitti_preset(n_frames=config.synthetic_frames, seed=2100 + s)
+        else:
+            cfg = SyntheticSequenceConfig(n_frames=16, seed=s, num_points=config.num_points)
+        self.scans, self.poses = generate_sequence(cfg, device=config.device)
 
     def __len__(self):
         return len(self.scans)
@@ -191,8 +235,10 @@ class _SyntheticTestSequence:
 
 
 def make_test_sequence(config: Config, s: int):
-    if config.dataset == "synthetic":
-        return _SyntheticTestSequence(s, config.num_points)
+    """The test-mode sequence of both test CLIs (pwclonet and posenet share
+    the dataset selection)."""
+    if config.dataset in ("synthetic", "synthetic_world"):
+        return _SyntheticTestSequence(config, s)
     return KittiSequence(config.root_dir, s)
 
 
@@ -222,9 +268,12 @@ def make_posenet_batch_fns(config: Config, projector: SphericalProjector):
         datasets = []
         if config.dataset == "synthetic":
             scans, gt = generate_sequence(
-                SyntheticSequenceConfig(n_frames=16 + 2 * config.synthetic_batches, seed=seed))
+                SyntheticSequenceConfig(n_frames=16 + 2 * config.synthetic_batches, seed=seed),
+                device=config.device)
             datasets.append(make_ds(scans, gt, num_points=scans.shape[1]))
         else:
+            # dataset=synthetic_world trains on KITTI under root_dir here, as
+            # train_net.py's posenet branch does (its test mode takes the worlds)
             for s in seq_ids:
                 seq = KittiSequence(config.root_dir, s)
                 datasets.append(make_ds([seq.scan(i) for i in range(len(seq))],
