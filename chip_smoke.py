@@ -4,7 +4,7 @@ CT-ICP, PoseResNet, the PointNet++ cls/semseg family, the KITTI-profile
 synthetic world) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--profile] [--kernels] [--icp] [--slam] [--ct_icp] [--posenet]
-                          [--cls_seg] [--world]
+                          [--cls_seg] [--world] [--batched]
 
 from the root of the repository, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which must pass:
@@ -198,6 +198,30 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    misses float64 by more than phase 2's atol), and timed; each point-kernel
    call equal to its own.
 
+13. Batched multi-sequence ICP odometry (``BatchedICPOdometry``; plain
+   PyTorch, none of the six kernels launched) at the full width of
+   ``config/kitti_batched.yaml``: 11 sequences at 8192 points, here 11
+   KITTI-profile worlds (``kitti_preset(32, seed=s)``, s = 0..10) of one
+   32-frame chunk, projective and voxel. Per mode: one batched step from the
+   batched state after 8 frames against ``process_frame`` of each sequence
+   from its slice of that state (1e-5 m). Projective, whose chains lose
+   track on most of these worlds: at every frame, each sequence's batched
+   step against ``process_frame`` from the same state, within 1e-5 m and
+   with the same iterations wherever that single step converged before its
+   iteration cap and moves by less than 1e-5 m when its scan is moved by
+   one ulp (the chains are printed, not held). Voxel: each
+   32-frame chain against ``ICPOdometry`` on the card within max(1e-3, 3x
+   the single path's own movement under a one-ulp nudge of that sequence's
+   scans, up and down). Both: two equal
+   sequences within 1e-5 m of each other (bit-equality printed); ms a batched
+   step, frames/s summed over the sequences beside the serial
+   ``ICPOdometry``'s, launches, device ms and host reads a step at S=1 and
+   S=11 and the idle share over 4 profiled steps, peak memory, ATE and
+   t_rel (5-20 m segments) a sequence. Then ``run_slam_torch.py
+   config=kitti_batched dataset=synthetic`` over 11 sequences of 32 frames
+   with ``profile_dir``: the result files, and CUDA kernel events in the
+   trace.
+
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
 thread count, the kNN kernel's at each number of queries a block, the MLP
@@ -215,7 +239,8 @@ checkpoint of seeded weights instead of phase 5's) and prints its metrics
 alone (no build) and print their metrics (no last line); ``--cls_seg``
 builds and runs phase 11 alone and prints its metrics (no last line);
 ``--world`` builds and runs phase 12 alone and prints its metrics and a
-kernels line of the six kernels on its path (no last line).
+kernels line of the six kernels on its path (no last line); ``--batched``
+runs phase 13 alone (no build) and prints its metrics (no last line).
 """
 
 from __future__ import annotations
@@ -229,6 +254,7 @@ import io
 import json
 import math
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -3110,6 +3136,325 @@ def world_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: batched multi-sequence ICP odometry (plain PyTorch, no kernel)
+# ---------------------------------------------------------------------------
+
+# config/kitti_batched.yaml: the 11 KITTI sequences at 8192 points in one
+# batched step a frame; here 11 KITTI-profile worlds of one chunk (32 frames)
+# each, cast on the card. The ICPConfig run_slam_torch.py's batched path
+# builds, projective and voxel (the candidate cache off, as the batched mode
+# forces it)
+BATCHED_SEQUENCES = 11
+BATCHED_FRAMES = 32  # one chunk of run_batched
+BATCHED_CONFIGS = {
+    "projective": icp.ICPConfig(num_points=8192),
+    "voxel": icp.ICPConfig(num_points=8192, association="voxel"),
+}
+BATCHED_CARRY_FRAMES = 8  # the step from one state held for every sequence: frame 8's
+BATCHED_STEP_ATOL_M = 1e-5  # one step from one state, batched against process_frame
+# the frames whose batched step is held against process_frame from the same
+# state. Projective: every frame, since projective ICP without the BEV prior
+# loses track on most of these worlds, the reference as much
+# (tests/icp_world_ate.py), and there a whole chain says little (on an H100,
+# world 8's batched chain parts from the single path's by 128.6 m, against
+# 3 x 24.6 m of the single path's own one-ulp movement). A step is held where
+# the single step reproduces itself: its Gauss-Newton loop converged before
+# the cap (a loop cut at the cap is not stable to rounding: on an H100, 5 of
+# 220 such steps that no nudge of +-1 or +-2 ulp moves part by up to
+# 0.092 m) and a one-ulp nudge of its scan moves it by less than the bar.
+# Voxel: frame 8, beside its whole chains
+BATCHED_STEP_FRAMES = {"projective": tuple(range(BATCHED_FRAMES)),
+                       "voxel": (BATCHED_CARRY_FRAMES,)}
+BATCHED_CHAIN_MODES = ("voxel",)  # chains held at max(1e-3, 3 x the single path's sens)
+BATCHED_EQUAL_ATOL_M = 1e-5  # tests/test_icp_odometry.py:424-426
+BATCHED_PROFILED_STEPS = 4
+BATCHED_T_REL_SEGMENTS = (5.0, 10.0, 20.0)  # m: KITTI's 100-800 m outrun 32 frames
+
+
+def batched_worlds() -> tuple:
+    """The 11 worlds: ``kitti_preset(32, seed=s, num_points=8192)``, cast on
+    the card; ``(scans (S, T, N, 3), ground truth (S, T, 4, 4))``."""
+    out = [generate_sequence(kitti_preset(BATCHED_FRAMES, seed=s, num_points=8192))
+           for s in range(BATCHED_SEQUENCES)]
+    return (np.stack([s for s, _ in out]).astype(np.float32),
+            np.stack([g for _, g in out]))
+
+
+def nudge_ulp(scans: np.ndarray, direction: float) -> np.ndarray:
+    """Every non-zero coordinate moved by one float32 ulp toward ``direction``."""
+    return np.where(scans != 0, np.nextafter(scans, np.float32(direction)), 0.0).astype(np.float32)
+
+
+def sequence_state(states: icp.OdometryState, s: int) -> icp.OdometryState:
+    return icp.state_from_leaves(x[s].clone() for x in icp.state_leaves(states))
+
+
+def batched_steps(cfg, scans: np.ndarray, frames) -> dict:
+    """The batched chain over ``scans (S, T, N, 3)``, stepped frame by frame.
+    At each frame of ``frames``, each sequence's batched step against
+    ``process_frame`` from its own slice of the same state (``step_gap_m``),
+    that single step against the single step on the frame's scan moved by
+    one float32 ulp up (``step_sens_m``: the single path's own sensitivity
+    from that state; None where it is not run), whether the single step's
+    Gauss-Newton loop converged before its cap (``step_converged``) and
+    whether the two steps ran the same iterations. Translation gaps,
+    (frames, S)."""
+    def frame_major(x):
+        return torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2, 3))).cuda()
+
+    exact, moved = frame_major(scans), frame_major(nudge_ulp(scans, np.inf))
+    st = icp.init_states(cfg, scans.shape[0], device="cuda")
+    out = {"step_frames": list(frames), "step_gap_m": [], "step_sens_m": [],
+           "step_converged": [], "step_iterations_equal": []}
+    for f in range(max(frames) + 1):
+        batched_stats = icp.StepStats()
+        nxt, batched = icp.process_frame_batched(cfg, st, exact[f], batched_stats)
+        if f in frames:
+            gap, sens, converged, same = [], [], [], []
+            for q in range(scans.shape[0]):
+                one, stats = sequence_state(st, q), icp.StepStats()
+                single = icp.process_frame(cfg, one, exact[f, q], stats)[1].pose[:3, 3]
+                gap.append((batched.pose[q, :3, 3] - single).abs().max())
+                converged.append(stats.iterations < cfg.max_num_alignments)
+                if converged[-1]:  # a step cut at the cap is not held: no nudge
+                    sens.append((icp.process_frame(cfg, one, moved[f, q])[1].pose[:3, 3]
+                                 - single).abs().max())
+                else:
+                    sens.append(gap[-1].new_tensor(math.nan))
+                same.append(stats.iterations == batched_stats.sequence_iterations[q])
+            out["step_gap_m"].append(torch.stack(gap).tolist())
+            out["step_sens_m"].append([None if math.isnan(x) else x
+                                       for x in torch.stack(sens).tolist()])
+            out["step_converged"].append(converged)
+            out["step_iterations_equal"].append(same)
+        st = nxt
+    return out
+
+
+def serial_chains(cfg, scans: np.ndarray, sensitivity: bool) -> dict:
+    """``ICPOdometry.process_sequence`` over each sequence (timed, alone on
+    the card); with ``sensitivity``, also over its scans moved by one
+    float32 ulp up and down: the single path's own sensitivity on that
+    sequence (``sens``, m)."""
+    chains, reads, iters, seconds = [], [], [], 0.0
+    for s in range(scans.shape[0]):
+        odo = icp.ICPOdometry(cfg, device="cuda")
+        odo.init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chains.append(odo.process_sequence(scans[s]))
+        seconds += time.perf_counter() - t0
+        reads.append(list(odo.host_reads))
+        iters.append(list(odo.iterations))
+    chains = np.stack(chains)
+    sens = None
+    if sensitivity:
+        sens = np.zeros(scans.shape[0])
+        odo = icp.ICPOdometry(cfg, device="cuda")
+        for direction in (np.inf, -np.inf):
+            moved = nudge_ulp(scans, direction)
+            for s in range(scans.shape[0]):
+                odo.init()
+                gap = np.abs(odo.process_sequence(moved[s])[:, :3, 3] - chains[s, :, :3, 3]).max()
+                sens[s] = max(sens[s], gap)
+        sens = sens.tolist()
+    return {"chains": chains, "sens": sens, "host_reads": reads, "iterations": iters,
+            "seconds": seconds}
+
+
+def batched_profile(cfg, scans: np.ndarray) -> dict:
+    """Launches, device ms and idle share of ``BATCHED_PROFILED_STEPS``
+    batched steps from the state after ``BATCHED_CARRY_FRAMES`` frames, and
+    the host reads and iterations of those steps."""
+    odo = icp.BatchedICPOdometry(cfg, device="cuda")
+    odo.init(scans.shape[0])
+    odo.process_chunk(scans[:, :BATCHED_CARRY_FRAMES])
+    st0 = odo.states
+    end = BATCHED_CARRY_FRAMES + BATCHED_PROFILED_STEPS
+    frames = torch.from_numpy(np.ascontiguousarray(
+        scans[:, BATCHED_CARRY_FRAMES:end].transpose(1, 0, 2, 3))).cuda()
+    stats = []
+
+    def steps():
+        stats.clear()
+        st = st0
+        for t in range(BATCHED_PROFILED_STEPS):
+            stats.append(icp.StepStats())
+            st, _ = icp.process_frame_batched(odo.config, st, frames[t], stats[-1])
+
+    _, device = profile_device_events(steps)
+    prof = summarize_device_events(device)
+    n = BATCHED_PROFILED_STEPS
+    return {
+        "sequences": scans.shape[0],
+        "launches_per_step": prof["device_launches"] / n,
+        "device_ms_per_step": prof["device_ms"] / n,
+        "idle_share": prof["idle_share"],
+        "host_reads_per_step": [st.host_reads for st in stats],
+        "gn_iterations_per_step": [st.iterations for st in stats],
+        "sequence_iterations": [st.sequence_iterations for st in stats],
+        "top_kernels": prof["top_kernels"][:6],
+    }
+
+
+def batched_equal_pair(cfg, scans: np.ndarray) -> dict:
+    odo = icp.BatchedICPOdometry(cfg, device="cuda")
+    odo.init(2)
+    poses = odo.process_chunk(np.stack([scans[0]] * 2))
+    gap = float(np.abs(poses[0, :, :3, 3] - poses[1, :, :3, 3]).max())
+    return {"equal_pair_gap_m": gap, "equal_pair_bit_equal": bool(np.array_equal(poses[0], poses[1]))}
+
+
+def batched_mode(mode: str, scans: np.ndarray, gt: np.ndarray) -> dict:
+    cfg = BATCHED_CONFIGS[mode]
+    s, t = scans.shape[:2]
+    odo = icp.BatchedICPOdometry(cfg, device="cuda")
+    odo.init(s)
+    odo.process_chunk(scans[:, :2])  # warm
+    odo.init(s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    poses = odo.process_chunk(scans)  # one upload, 32 batched steps, one fetch
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out = {
+        "config": repr(odo.config),
+        "ms_per_batched_step": 1e3 * seconds / t,
+        "frames_per_s_summed": s * t / seconds,
+        "peak_memory_bytes": peak,
+        "host_reads_per_step": list(odo.host_reads),
+        "gn_iterations_per_step": [max(it) for it in odo.iterations],
+    }
+    serial = serial_chains(odo.config, scans, sensitivity=mode in BATCHED_CHAIN_MODES)
+    out["serial_frames_per_s"] = s * t / serial["seconds"]
+    out["serial_max_host_reads_per_frame"] = [max(r[f] for r in serial["host_reads"])
+                                              for f in range(t)]
+    out["iterations_equal_share"] = float(np.mean([
+        odo.iterations[f][q] == serial["iterations"][q][f] for f in range(t) for q in range(s)]))
+    sens = serial["sens"]
+    gaps = [float(np.abs(poses[q, :, :3, 3] - serial["chains"][q, :, :3, 3]).max())
+            for q in range(s)]
+    rot_gaps = [float(np.abs(poses[q, :, :3, :3] - serial["chains"][q, :, :3, :3]).max())
+                for q in range(s)]
+    bars = [max(1e-3, 3.0 * x) for x in sens] if sens else None
+    out.update({"chain_gap_m": gaps, "chain_rot_gap": rot_gaps, "chain_bar": bars,
+                "single_path_sens_m": sens,
+                "chain_bit_equal": [bool(np.array_equal(poses[q], serial["chains"][q]))
+                                    for q in range(s)]})
+    out["ate_m_per_frame"], out["t_rel_pct"] = [], []
+    for q in range(s):
+        md = odo_metrics.metrics_dict(poses[q], gt[q], segments=BATCHED_T_REL_SEGMENTS)
+        out["ate_m_per_frame"].append(md["ATE"])
+        out["t_rel_pct"].append(md["tr_err"])
+    out.update(batched_steps(odo.config, scans, BATCHED_STEP_FRAMES[mode]))
+    step_gap = np.array(out["step_gap_m"])  # (frames, S)
+    step_sens = np.array(out["step_sens_m"], dtype=float)  # None -> nan: not held
+    carry = np.array(out["step_gap_m"][out["step_frames"].index(BATCHED_CARRY_FRAMES)])
+    # where the single step reproduces itself: its loop converged before the
+    # cap and a one-ulp nudge of its scan moves it by less than the bar
+    stable = (step_sens < BATCHED_STEP_ATOL_M) & np.array(out["step_converged"])
+    same_iterations = np.array(out["step_iterations_equal"])
+    out.update({"carry_step_gap_max_m": float(carry.max()),
+                "steps_held": int(stable.sum()), "steps": int(stable.size),
+                "steps_converged": int(np.sum(out["step_converged"])),
+                "held_steps_iterations_equal": int(same_iterations[stable].sum()),
+                "held_step_gap_max_m": float(step_gap[stable].max(initial=0.0)),
+                "free_step_gap_max_m": float(step_gap[~stable].max(initial=0.0))})
+    out.update(batched_equal_pair(cfg, scans))
+    out["profile_s1"] = batched_profile(cfg, scans[:1])
+    out["profile_s11"] = batched_profile(cfg, scans)
+    p1, p11 = out["profile_s1"], out["profile_s11"]
+    log(f"batched ICP {mode}: {out['ms_per_batched_step']:.2f} ms a batched step of {s}, "
+        f"{out['frames_per_s_summed']:.1f} frames/s summed (serial ICPOdometry "
+        f"{out['serial_frames_per_s']:.1f}); a step at S=1 / S={s}: "
+        f"{p1['launches_per_step']:.0f} / {p11['launches_per_step']:.0f} launches, "
+        f"{p1['device_ms_per_step']:.3f} / {p11['device_ms_per_step']:.3f} device ms, "
+        f"host reads {p1['host_reads_per_step']} / {p11['host_reads_per_step']}; idle "
+        f"{p11['idle_share']:.3f}; peak {peak / 2**20:.0f} MiB")
+    log(f"batched ICP {mode}: one step from one state at frame {BATCHED_CARRY_FRAMES} "
+        f"{out['carry_step_gap_max_m']:.3g} m; over frames {out['step_frames'][0]}-"
+        f"{out['step_frames'][-1]} the single step converged before the cap on "
+        f"{out['steps_converged']} of {out['steps']} steps; {out['steps_held']} of those move "
+        f"< {BATCHED_STEP_ATOL_M} m under a one-ulp nudge, within "
+        f"{out['held_step_gap_max_m']:.3g} m, iterations equal on "
+        f"{out['held_steps_iterations_equal']} (the others within "
+        f"{out['free_step_gap_max_m']:.3g} m); chains {max(gaps):.3g} m, "
+        f"{sum(out['chain_bit_equal'])} of {s} bit-equal; iterations equal on "
+        f"{100 * out['iterations_equal_share']:.1f} % of sequence frames; equal pair "
+        f"{out['equal_pair_gap_m']:.3g} m (bit-equal: {out['equal_pair_bit_equal']}); ATE "
+        f"{min(out['ate_m_per_frame']):.4f}-{max(out['ate_m_per_frame']):.4f} m/frame")
+    for q in range(s):
+        same = np.mean([odo.iterations[f][q] == serial["iterations"][q][f] for f in range(t)])
+        bar = (f", bar {bars[q]:.4g} (single-path sens {sens[q]:.4g} m)" if bars
+               else " (not held)")
+        log(f"  sequence {q}: chain gap {gaps[q]:.4g} m, rotation {rot_gaps[q]:.4g}{bar}, "
+            f"steps held {int(stable[:, q].sum())} of {stable.shape[0]}, iterations equal on "
+            f"{100 * same:.0f} % of frames, ATE {out['ate_m_per_frame'][q]:.4f} m/frame")
+    check(out["carry_step_gap_max_m"] <= BATCHED_STEP_ATOL_M,
+          f"batched ICP {mode}: one step from one state (frame {BATCHED_CARRY_FRAMES}) within "
+          f"{BATCHED_STEP_ATOL_M} m of process_frame for each of the {s} sequences")
+    check(out["held_step_gap_max_m"] <= BATCHED_STEP_ATOL_M
+          and out["held_steps_iterations_equal"] == out["steps_held"],
+          f"batched ICP {mode}: at frames {out['step_frames'][0]}-{out['step_frames'][-1]}, "
+          f"each batched step within {BATCHED_STEP_ATOL_M} m of process_frame from the same "
+          f"state, with its iterations, wherever that step converged before the cap and moves "
+          f"< {BATCHED_STEP_ATOL_M} m under a one-ulp nudge ({out['steps_held']} of "
+          f"{out['steps']})")
+    if bars:
+        check(all(gaps[q] <= bars[q] and rot_gaps[q] <= bars[q] for q in range(s)),
+              f"batched ICP {mode}: the {t}-frame chain of each of the {s} sequences within "
+              f"max(1e-3, 3 x the single path's one-ulp movement) of ICPOdometry")
+    check(out["equal_pair_gap_m"] <= BATCHED_EQUAL_ATOL_M,
+          f"batched ICP {mode}: two equal sequences within {BATCHED_EQUAL_ATOL_M} m")
+    check(np.all(np.isfinite(poses)) and all(is_se3(poses[q]) for q in range(s)),
+          f"batched ICP {mode}: finite SE(3) poses")
+    return out
+
+
+def batched_cli_drive(work: str) -> dict:
+    """``run_slam_torch.py config=kitti_batched dataset=synthetic`` over the
+    11 sequences of 32 frames at 8192 points, with a profiler trace."""
+    log_dir, prof = str(Path(work, "run")), Path(work, "prof")
+    argv = ["config=kitti_batched", "dataset=synthetic",
+            "sequences=" + ",".join(str(s) for s in range(BATCHED_SEQUENCES)),
+            f"synthetic_frames={BATCHED_FRAMES}", "num_points=8192", f"log_dir={log_dir}",
+            f"profile_dir={prof}"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = run_slam_torch.main(argv)
+    seconds = time.perf_counter() - t0
+    poses = [read_poses_txt(str(Path(log_dir, f"synth{s:02d}.poses.txt")))
+             for s in range(BATCHED_SEQUENCES)]
+    traces = list(prof.glob("trace_*.json"))
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    kernel_events = len(re.findall(r'"cat"\s*:\s*"kernel"', text))
+    check(rc == 0 and all(p.shape == (BATCHED_FRAMES, 4, 4) and np.all(np.isfinite(p))
+                          for p in poses) and Path(log_dir, "metrics.yaml").exists(),
+          "run_slam_torch.py config=kitti_batched: 11 pose files of 32 frames and metrics.yaml")
+    check(kernel_events > 0, f"the profile_dir trace holds CUDA kernel events ({kernel_events})")
+    return {"argv": argv, "seconds": seconds, "trace_bytes": len(text),
+            "trace_kernel_events": kernel_events}
+
+
+def batched_phase() -> dict:
+    t0 = time.perf_counter()
+    _cuda.reset_launch_counts()
+    log(f"phase 13: casting {BATCHED_SEQUENCES} KITTI-profile worlds of {BATCHED_FRAMES} frames")
+    scans, gt = batched_worlds()
+    out = {"worlds_s": time.perf_counter() - t0}
+    for mode in BATCHED_CONFIGS:
+        out[mode] = batched_mode(mode, scans, gt)
+    with tempfile.TemporaryDirectory() as work:
+        out["cli"] = batched_cli_drive(work)
+    counts = _cuda.launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          "batched ICP launched none of the point-op kernels (plain PyTorch)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3141,6 +3486,9 @@ def main() -> int:
                         help="build, then phase 12 alone (the KITTI-profile world on the card, "
                              "PWCLO-Net trained and tested on it); prints its metrics and a "
                              "kernels line, no ok line")
+    parser.add_argument("--batched", action="store_true",
+                        help="run phase 13 alone (batched multi-sequence ICP and the profiler "
+                             "hook, no kernel build); prints its metrics and no ok line")
     parser.add_argument("--slam", action="store_true",
                         help="build, the SLAM kernel cases of phase 2, then phase 8 alone with a "
                              "checkpoint of seeded random weights; prints its metrics and no ok "
@@ -3156,6 +3504,11 @@ def main() -> int:
         log("phase 7 alone: classic ICP odometry at full width, projective and voxel")
         print(card_line())
         print(json.dumps({"icp": icp_phase()}))
+        return 0
+    if args.batched:
+        log("phase 13 alone: batched multi-sequence ICP odometry at full width")
+        print(card_line())
+        print(json.dumps({"batched_icp": batched_phase()}))
         return 0
     if args.ct_icp or args.posenet:
         print(card_line())
@@ -3284,6 +3637,9 @@ def main() -> int:
     world = world_phase()
     world_lines = {k["name"]: k for k in world_kernel_lines(world)}
 
+    log("phase 13: batched multi-sequence ICP odometry at full width, projective and voxel")
+    batched = batched_phase()
+
     kernels = []
     slam_icp = slam["slam-icp-loop"]["launches"]
     slam_deep = slam["slam-pwclonet-loop"]["launches"]
@@ -3328,7 +3684,7 @@ def main() -> int:
         "train": {**train, **train_times}, "learning_recipe": learning,
         "profile": profiles, "icp": icp_metrics, "slam": slam, "ct_icp": ct_metrics,
         "posenet": pn_metrics, "cls_seg": {k: v for k, v in cls_seg.items() if k != "cases"},
-        "world": world,
+        "world": world, "batched_icp": batched,
         "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
@@ -3362,6 +3718,10 @@ def main() -> int:
     finite += [world["cast"][key] for key in ("cast_ms_a_frame", "host_loop_ms_a_frame")]
     finite += [world[part][key] for part in ("train", "test") for key in ("seconds",)]
     finite += [world["train"][key] for key in ("train_loss", "eval_loss")]
+    finite += [batched[mode][key] for mode in BATCHED_CONFIGS
+               for key in ("ms_per_batched_step", "frames_per_s_summed", "serial_frames_per_s")]
+    finite += [batched[mode][p][key] for mode in BATCHED_CONFIGS for p in ("profile_s1", "profile_s11")
+               for key in ("device_ms_per_step", "idle_share")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
     check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
           "six kernels and the masked kNN, each launched on its main path")

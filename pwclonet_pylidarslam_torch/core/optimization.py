@@ -84,9 +84,11 @@ def robust_weights(
 
 def normal_equations(wjac: torch.Tensor, wres: torch.Tensor):
     """``H = JᵀJ (B, D, D)`` and ``g = Jᵀr (B, D)`` of weighted ``wjac
-    (B, N, D)`` and ``wres (B, N)``."""
+    (B, N, D)`` and ``wres (B, N)``. ``g`` is taken as ``rᵀJ``: on the CPU
+    that product rounds each row as it would alone whatever B, where ``Jᵀr``
+    rounds otherwise once B > 1 (at B = 1 the two are equal)."""
     h = wjac.transpose(-1, -2) @ wjac
-    g = (wjac.transpose(-1, -2) @ wres[..., None])[..., 0]
+    g = (wres[..., None, :] @ wjac)[..., 0, :]
     return h, g
 
 

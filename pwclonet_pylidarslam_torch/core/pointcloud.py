@@ -69,20 +69,19 @@ def grid_sample_mask(
     voxel_size: float,
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One point per voxel: boolean mask ``(N,)`` keeping the lowest-index
-    point of each voxel. Invalid points go to the sentinel hash
-    ``INT32_MAX``, which is never kept."""
+    """One point per voxel: boolean mask ``(..., N)`` keeping the
+    lowest-index point of each voxel (of each row, with leading axes).
+    Invalid points go to the sentinel hash ``INT32_MAX``, which is never
+    kept."""
     h = voxel_hash(voxelise(points, voxel_size))
     if valid is not None:
         h = torch.where(valid > 0, h, INT32_MAX)
-    h_sorted, order = torch.sort(h, stable=True)
+    h_sorted, order = torch.sort(h, dim=-1, stable=True)
     first = torch.ones_like(h_sorted, dtype=torch.bool)
-    first[1:] = h_sorted[1:] != h_sorted[:-1]
+    first[..., 1:] = h_sorted[..., 1:] != h_sorted[..., :-1]
     if valid is not None:
         first = first & (h_sorted != INT32_MAX)
-    mask = torch.zeros_like(first)
-    mask[order] = first
-    return mask
+    return torch.zeros_like(first).scatter_(-1, order, first)
 
 
 class VoxelStats(NamedTuple):

@@ -3,7 +3,8 @@ registration.
 
 PyTorch counterpart of ``pwclonet_pylidarslam_tpu/core/registration.py``:
 phase correlation of BEV elevation images for (x, y) and correlation of
-polar spectra for yaw, on ``torch.fft``.
+polar spectra for yaw, on ``torch.fft``. The BEV functions take leading
+batch axes (one registration a row), as the reference's take ``vmap``.
 """
 
 from __future__ import annotations
@@ -55,30 +56,31 @@ class BEVConfig:
 def build_elevation_image(
     points: torch.Tensor, config: BEVConfig, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Scatter-max elevation image ``(S, S)`` of ``points (N, 3)``.
+    """Scatter-max elevation image ``(..., S, S)`` of ``points (..., N, 3)``.
 
     A pixel holds the max z (clipped to [z_min, z_max]) normalised to
     [0, 1]; empty pixels are 0. The image is centred at the origin.
     """
     s = config.image_size
-    px = torch.round(points[:, 0] / config.pixel_size + s // 2).to(torch.int64)
-    py = torch.round(points[:, 1] / config.pixel_size + s // 2).to(torch.int64)
+    px = torch.round(points[..., 0] / config.pixel_size + s // 2).to(torch.int64)
+    py = torch.round(points[..., 1] / config.pixel_size + s // 2).to(torch.int64)
     valid = (px >= 0) & (px < s) & (py >= 0) & (py < s)
     valid = valid & (torch.linalg.norm(points, dim=-1) > 1e-6)
     if mask is not None:
         valid = valid & (mask > 0)
-    z = torch.clamp(points[:, 2], config.z_min, config.z_max)
+    z = torch.clamp(points[..., 2], config.z_min, config.z_max)
     z01 = (z - config.z_min) / (config.z_max - config.z_min)
     flat = torch.where(valid, px * s + py, s * s)
-    img = torch.zeros(s * s + 1, dtype=points.dtype, device=points.device)
-    img.scatter_reduce_(0, flat, torch.where(valid, z01, 0.0), "amax", include_self=True)
-    return img[: s * s].reshape(s, s)
+    lead = points.shape[:-2]
+    img = torch.zeros(lead + (s * s + 1,), dtype=points.dtype, device=points.device)
+    img.scatter_reduce_(-1, flat, torch.where(valid, z01, 0.0), "amax", include_self=True)
+    return img[..., : s * s].reshape(lead + (s, s))
 
 
 class PlanarRegistration(NamedTuple):
-    yaw: torch.Tensor  # () rad, rotation of b's frame against a's
-    translation: torch.Tensor  # (2,) meters, in a's frame
-    confidence: torch.Tensor  # () correlation peak ratio
+    yaw: torch.Tensor  # (...) rad, rotation of b's frame against a's
+    translation: torch.Tensor  # (..., 2) meters, in a's frame
+    confidence: torch.Tensor  # (...) correlation peak ratio
 
 
 def _hann2d(s: int, dtype, device) -> torch.Tensor:
@@ -87,21 +89,21 @@ def _hann2d(s: int, dtype, device) -> torch.Tensor:
 
 
 def _phase_correlate(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shift ``(2,)`` in pixels that best maps ``b`` onto ``a``, and the
-    sharpness of the correlation peak."""
+    """Shift ``(..., 2)`` in pixels that best maps ``b`` onto ``a``, and
+    the sharpness of the correlation peak."""
     fa = torch.fft.rfft2(a)
     fb = torch.fft.rfft2(b)
     cross = fa * torch.conj(fb)
     r = cross / torch.clamp_min(torch.abs(cross), 1e-12)
-    corr = torch.fft.irfft2(r, s=a.shape)
-    idx = torch.argmax(corr)
-    s0, s1 = a.shape
+    s0, s1 = a.shape[-2:]
+    corr = torch.fft.irfft2(r, s=(s0, s1)).flatten(-2)
+    idx = torch.argmax(corr, dim=-1)
     di, dj = idx // s1, idx % s1
     di = torch.where(di > s0 // 2, di - s0, di)
     dj = torch.where(dj > s1 // 2, dj - s1, dj)
-    peak = torch.amax(corr)
-    conf = peak / torch.clamp_min(torch.mean(torch.abs(corr)) * 10.0, 1e-12)
-    return torch.stack([di, dj]).to(a.dtype), torch.clamp_max(conf, 100.0) * (peak > 0)
+    peak = torch.amax(corr, dim=-1)
+    conf = peak / torch.clamp_min(torch.mean(torch.abs(corr), dim=-1) * 10.0, 1e-12)
+    return torch.stack([di, dj], -1).to(a.dtype), torch.clamp_max(conf, 100.0) * (peak > 0)
 
 
 @functools.lru_cache(maxsize=8)
@@ -135,12 +137,12 @@ def _log_polar_spectrum(img: torch.Tensor, n_theta: int = 180, n_r: int = 96) ->
     rotation becomes a circular shift along theta. Bilinear, with zeros off
     the image (``map_coordinates(order=1, mode="constant")``); the taps are
     weighted and summed in float64."""
-    s = img.shape[0]
-    spec = torch.log1p(torch.abs(torch.fft.fftshift(torch.fft.fft2(img))))
-    flat_spec = spec.reshape(-1).to(torch.float64)
+    s = img.shape[-1]
+    spec = torch.log1p(torch.abs(torch.fft.fftshift(torch.fft.fft2(img), dim=(-2, -1))))
+    flat_spec = spec.flatten(-2).to(torch.float64)
     out = None
     for idx, ok, w in _log_polar_taps(s, n_theta, n_r, img.device):
-        term = w * torch.where(ok, flat_spec[idx], 0.0)
+        term = w * torch.where(ok, flat_spec[..., idx], 0.0)
         out = term if out is None else out + term
     return out.to(img.dtype)
 
@@ -150,18 +152,19 @@ def estimate_yaw(a: torch.Tensor, b: torch.Tensor, n_theta: int = 180):
     resolved by the caller on correlation scores)."""
     pa = _log_polar_spectrum(a, n_theta)
     pb = _log_polar_spectrum(b, n_theta)
-    fa = torch.fft.rfft(pa, dim=0)
-    fb = torch.fft.rfft(pb, dim=0)
-    corr = torch.fft.irfft(fa * torch.conj(fb), n=n_theta, dim=0).sum(dim=1)
-    shift = torch.argmax(corr)
+    fa = torch.fft.rfft(pa, dim=-2)
+    fb = torch.fft.rfft(pb, dim=-2)
+    corr = torch.fft.irfft(fa * torch.conj(fb), n=n_theta, dim=-2).sum(dim=-1)
+    shift = torch.argmax(corr, dim=-1)
     shift = torch.where(shift > n_theta // 2, shift - n_theta, shift)
     yaw = shift.to(a.dtype) * (math.pi / n_theta)
-    conf = torch.amax(corr) / torch.clamp_min(torch.mean(torch.abs(corr)), 1e-12)
+    conf = torch.amax(corr, dim=-1) / torch.clamp_min(torch.mean(torch.abs(corr), dim=-1), 1e-12)
     return yaw, conf
 
 
 def rotate_points_z(points: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
-    c, s = torch.cos(yaw), torch.sin(yaw)
+    """``points (..., N, 3)`` turned by ``yaw (...)`` about z."""
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
     x = c * points[..., 0] - s * points[..., 1]
     y = s * points[..., 0] + c * points[..., 1]
     return torch.stack([x, y, points[..., 2]], dim=-1)
@@ -193,16 +196,17 @@ def register_bev(
     s1, c1 = score(yaw0 + math.pi)
     use1 = c1 > c0
     yaw = torch.where(use1, yaw0 + math.pi, yaw0)
-    shift = torch.where(use1, s1, s0)
+    shift = torch.where(use1[..., None], s1, s0)
     conf = torch.maximum(c0, c1)
     return PlanarRegistration(yaw=yaw, translation=shift * config.pixel_size, confidence=conf)
 
 
 def planar_to_pose(reg: PlanarRegistration, dtype=torch.float32) -> torch.Tensor:
-    """(yaw, txy) → 4×4 SE(3) with ``p_a ≈ T · p_b``."""
+    """(yaw, txy) → ``(..., 4, 4)`` SE(3) with ``p_a ≈ T · p_b``."""
     c, s = torch.cos(reg.yaw).to(dtype), torch.sin(reg.yaw).to(dtype)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
-    r = torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]),
-                     torch.stack([zero, zero, one])])
-    t = torch.stack([reg.translation[0].to(dtype), reg.translation[1].to(dtype), zero])
+    r = torch.stack([torch.stack([c, -s, zero], -1), torch.stack([s, c, zero], -1),
+                     torch.stack([zero, zero, one], -1)], -2)
+    t = torch.stack([reg.translation[..., 0].to(dtype), reg.translation[..., 1].to(dtype),
+                     zero], -1)
     return se3.make_pose(r, t)

@@ -28,11 +28,19 @@ def identity_pose(batch_shape=(), dtype=torch.float32, device="cpu") -> torch.Te
     return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch_shape) + (4, 4))
 
 
+def _apply_to_translation(mat: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """``mat (..., 3, 3)`` times the translation column of ``pose (..., 4, 4)``,
+    as one batched product over a leading axis of 1. On the CPU it rounds as
+    ``einsum("...ij,...j->...i")`` does, at every rank; on CUDA the column
+    slice is a layout cuBLAS takes as it lies, where einsum's operand was
+    copied first (a launch more)."""
+    return (mat[None] @ pose[None, ..., :3, 3:4])[0, ..., 0]
+
+
 def inverse(pose: torch.Tensor) -> torch.Tensor:
     """Closed-form SE(3) inverse."""
     r_t = pose[..., :3, :3].transpose(-1, -2)
-    t = pose[..., :3, 3]
-    return make_pose(r_t, -torch.einsum("...ij,...j->...i", r_t, t))
+    return make_pose(r_t, -_apply_to_translation(r_t, pose))
 
 
 def transform(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -111,7 +119,7 @@ def log(pose: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     )
     eye = torch.eye(3, dtype=pose.dtype, device=pose.device).expand(k.shape)
     v_inv = eye - 0.5 * k + c[..., None, None] * k2
-    v = torch.einsum("...ij,...j->...i", v_inv, pose[..., :3, 3])
+    v = _apply_to_translation(v_inv, pose)
     return torch.cat([v, omega], dim=-1)
 
 

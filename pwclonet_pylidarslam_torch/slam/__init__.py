@@ -8,6 +8,7 @@ from pwclonet_pylidarslam_torch.slam.ct_icp_odometry import (  # noqa: F401
     CTICPOdometry,
 )
 from pwclonet_pylidarslam_torch.slam.icp_odometry import (  # noqa: F401
+    BatchedICPOdometry,
     ICPConfig,
     ICPOdometry,
 )

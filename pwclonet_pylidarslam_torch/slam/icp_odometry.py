@@ -23,17 +23,25 @@ Where the reference branches on device data, this port decides as follows:
 - ``reassociate_every`` counts host iterations: no read;
 - the lazy voxel table (``voxel_rebuild_every > 1``) reads its refresh
   flag on the host once a frame, since building the table on both sides
-  would cost what the cache saves;
+  would cost what the cache saves (one sequence; a batch builds and
+  selects);
 - the lazy model map: with both thresholds 0 (the default) the map is
   stale on every frame that moved, so it is always built and the cached one
   is selected with ``torch.where`` where the reference would not rebuild
-  (no read); with a threshold set, the flag is read once a frame, since
-  skipping the build is the point of the setting.
+  (no read); with a threshold set, one sequence reads the flag once a
+  frame, since skipping the build is the point of the setting.
 
-Products run in full fp32 whatever the caller set: :func:`process_frame`
-turns cuBLAS's and cuDNN's TF32 switches off for the step and restores them
-after, as the reference runs its step under
-``jax.default_matmul_precision("highest")``.
+The step takes a leading sequence axis S on every state leaf and on the
+scans (:func:`process_frame_batched`, :class:`BatchedICPOdometry`): the
+semantics of the reference's ``vmap`` over ``process_frame``. The loop runs
+until every sequence has converged, a converged one frozen by
+``torch.where``; both sides of a rebuild are computed and selected per
+sequence where S > 1, with no host read; the host reads of a step do not
+grow with S. :func:`process_frame` is that step at S = 1.
+
+Products run in full fp32 whatever the caller set: the step turns cuBLAS's
+and cuDNN's TF32 switches off and restores them after, as the reference
+runs its step under ``jax.default_matmul_precision("highest")``.
 """
 
 from __future__ import annotations
@@ -194,10 +202,13 @@ def full_fp32_products():
 
 
 class StepStats:
-    """What a step did on the host: Gauss-Newton iterations and host reads."""
+    """What a step did on the host: Gauss-Newton iterations and host reads.
+    ``sequence_iterations`` holds the iterations of each sequence of a
+    batched step (its loop runs ``iterations``, the most of them)."""
 
     def __init__(self):
         self.iterations = 0
+        self.sequence_iterations: List[int] = []
         self.host_reads = 0
 
     def read(self, t: torch.Tensor) -> list:
@@ -219,20 +230,31 @@ def _register(
     assoc_cache_fns=None,
     stats: Optional[StepStats] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Iterated association + point-to-plane Gauss-Newton against the map.
+    """Iterated association + point-to-plane Gauss-Newton against the map,
+    for S sequences at once: ``points (S, N, 3)``, ``mask (S, N)``.
 
-    ``assoc_fn(warped (N,3), gate) -> (targets, normals, weights)``.
-    Returns the correction ``delta (4,4)`` from scan to map-frame
+    ``assoc_fn(warped (S,N,3), gate) -> (targets, normals, weights)``.
+    Returns the correction ``delta (S,4,4)`` from scan to map-frame
     coordinates (the frame pose is ``model_pose @ delta``) and the
-    (num_matches, cost) of the last iteration. ``assoc_cache_fns`` =
-    ``(gather_fn(warped), from_cache_fn(cache, warped, gate, fresh))``
-    turns on the voxel candidate cache.
+    (num_matches, cost) ``(S,)`` of each sequence's last iteration.
+    ``assoc_cache_fns`` = ``(gather_fn(warped), from_cache_fn(cache, warped,
+    gate, fresh))`` turns on the voxel candidate cache (S = 1 only: its
+    refresh is read on the host).
+
+    The loop runs until every sequence has converged, as the reference's
+    ``while_loop`` under ``vmap``: a converged sequence is frozen (its
+    ``delta``, matches and cost kept by ``torch.where``) while the others
+    iterate. The host reads one flag vector an iteration from the gate's
+    floor on, whatever S; the selects start only once a sequence has
+    stopped, so a step at S = 1 runs none.
     """
     stats = stats if stats is not None else StepStats()
-    dtype, dev = points.dtype, points.device
+    s, dtype, dev = points.shape[0], points.dtype, points.device
+    if assoc_cache_fns is not None and s > 1:
+        raise ValueError("the voxel candidate cache runs one sequence at a time")
     f32 = np.float32 if dtype == torch.float32 else np.float64
     eye4 = torch.eye(4, dtype=dtype, device=dev)
-    delta = eye4 if init_delta is None else init_delta
+    delta = eye4.expand(s, 4, 4) if init_delta is None else init_delta
     w_prior = inv_init = None
     if config.prior_sigma_trans > 0 or config.prior_sigma_rot_deg > 0:
         wt = 1.0 / config.prior_sigma_trans**2 if config.prior_sigma_trans > 0 else 0.0
@@ -245,8 +267,13 @@ def _register(
     floor = f32(config.max_assoc_distance)
     corr = None
     refresh = True
-    warped = se3.transform(delta[None], points[None])[0]
+    warped = se3.transform(delta, points)
     num_matches = cost = None
+    # which sequences still iterate: on the host (from the flags it reads)
+    # and, once one has stopped, on the device for the selects
+    running = [True] * s
+    active = None
+    sequence_iterations = [0] * s
     i = 0
     while i < config.max_num_alignments:
         # the gate and the robust scale in the precision of the points, as
@@ -265,74 +292,90 @@ def _register(
             target, normal, w_assoc = assoc_fn(warped, float(gate))
         w = w_assoc * mask
         sigma_i = max(f32(config.sigma), f32(config.sigma_anneal) * gate)
-        res, jac = opt.point_to_plane_residual_jac(
-            delta[None], points[None], target[None], normal[None], mask=w[None]
-        )
+        res, jac = opt.point_to_plane_residual_jac(delta, points, target, normal, mask=w)
         rw = opt.robust_weights(res, config.scheme, sigma_i)
         wres = res * rw
         h, g = opt.normal_equations(jac * rw[..., None], wres)
-        h, g = h[0], g[0]
         if w_prior is not None:
-            xi = se3.log((delta @ inv_init)[None])[0]
+            xi = se3.log(delta @ inv_init)
             h = h + torch.diag(w_prior)
             g = g + w_prior * xi
-        dx = opt.damped_step(h[None], g[None], 1e-9)[0]
-        num_matches = torch.sum(w)
-        good = (num_matches >= config.min_matches) & torch.all(torch.isfinite(dx))
-        dx = torch.where(good, dx, 0.0)
-        delta = se3.exp(dx) @ delta
-        cost = torch.sum(wres[0] ** 2)
+        dx = opt.damped_step(h, g, 1e-9)
+        new_matches = torch.sum(w, dim=-1)
+        good = (new_matches >= config.min_matches) & torch.all(torch.isfinite(dx), dim=-1)
+        dx = torch.where(good[:, None], dx, 0.0)
+        new_delta = se3.exp(dx) @ delta
+        new_cost = torch.sum(wres ** 2, dim=-1)
+        if active is None:
+            delta, num_matches, cost = new_delta, new_matches, new_cost
+        else:
+            delta = torch.where(active[:, None, None], new_delta, delta)
+            num_matches = torch.where(active, new_matches, num_matches)
+            cost = torch.where(active, new_cost, cost)
         i += 1
         stats.iterations += 1
+        sequence_iterations = [n + r for n, r in zip(sequence_iterations, running)]
         if i >= config.max_num_alignments:
             break
         # convergence counts only once the gate has annealed to its floor
         gate_done = bool(gate <= f32(config.max_assoc_distance * 1.001))
-        warped = se3.transform(delta[None], points[None])[0]
+        warped = se3.transform(delta, points)
         flags = []
         if gate_done:
-            flags.append(torch.linalg.norm(dx) < config.threshold_delta_pose)
+            converged = torch.linalg.norm(dx, dim=-1) < config.threshold_delta_pose
+            flags.append(converged)
         if assoc_cache_fns is not None:
-            moved = torch.amax(torch.sum((warped - corr[-1]) ** 2, dim=-1))
+            moved = torch.amax(torch.sum((warped - corr[-1]) ** 2, dim=-1), dim=-1)
             flags.append(moved > margin * margin)
         if not flags:
             continue
-        values = stats.read(torch.stack(flags))
+        values = stats.read(flags[0] if len(flags) == 1 else torch.cat(flags))
         if assoc_cache_fns is not None:
             refresh = bool(values[-1])
-        if gate_done and values[0]:
-            break
+        if gate_done:
+            running = [r and not c for r, c in zip(running, values[:s])]
+            if not any(running):
+                break
+            if not all(running):
+                active = ~converged if active is None else active & ~converged
+    stats.sequence_iterations = sequence_iterations
     return delta, num_matches, cost
 
 
 def _normalize_or_nan(pose: torch.Tensor) -> torch.Tensor:
-    """``se3.normalize`` of a finite pose, NaN otherwise: the SVD is only
-    given finite input, and a blown-up pose stays non-finite for the guard
-    that replaces it by the prediction."""
-    finite = torch.all(torch.isfinite(pose))
+    """``se3.normalize`` of a finite pose ``(..., 4, 4)``, NaN otherwise:
+    the SVD is only given finite input, and a blown-up pose stays
+    non-finite for the guard that replaces it by the prediction."""
+    finite = _all_finite(pose)[..., None, None]
     safe = torch.where(finite, pose, torch.eye(4, dtype=pose.dtype, device=pose.device))
     return torch.where(finite, se3.normalize(safe), math.nan)
+
+
+def _all_finite(pose: torch.Tensor) -> torch.Tensor:
+    """Whether each ``(4, 4)`` of ``pose (..., 4, 4)`` is finite."""
+    return torch.all(torch.isfinite(pose).flatten(-2), dim=-1)
 
 
 def _bev_prior(config: ICPConfig, state: OdometryState, points, valid, dtype):
     """The reference's BEV bootstrap: the BEV registration of the previous
     scan against this one replaces the constant-velocity prior where they
-    disagree by more than the thresholds and the registration is confident."""
+    disagree by more than the thresholds and the registration is confident
+    (each sequence on its own)."""
     prev_valid = (torch.linalg.norm(state.prev_scan, dim=-1) > 1e-3).to(dtype)
     reg = register_bev(state.prev_scan, prev_valid, points, valid,
                        BEVConfig(pixel_size=0.4, image_size=256))
     rel_bev = planar_to_pose(reg, dtype)
-    yaw_cv = torch.atan2(state.last_rel[1, 0], state.last_rel[0, 0])
+    yaw_cv = torch.atan2(state.last_rel[..., 1, 0], state.last_rel[..., 0, 0])
     dyaw = torch.abs(
         torch.remainder(reg.yaw - yaw_cv + math.pi, 2.0 * math.pi) - math.pi
     ) * (180.0 / math.pi)
-    dtrans = torch.linalg.norm(rel_bev[:2, 3] - state.last_rel[:2, 3])
+    dtrans = torch.linalg.norm(rel_bev[..., :2, 3] - state.last_rel[..., :2, 3], dim=-1)
     use_bev = (
         ((dyaw > config.bev_yaw_threshold_deg) | (dtrans > config.bev_trans_threshold))
         & (reg.confidence > config.bev_min_confidence)
         & (state.frame_idx > 0)
     )
-    return torch.where(use_bev, rel_bev, state.last_rel)
+    return torch.where(use_bev[..., None, None], rel_bev, state.last_rel)
 
 
 def frame_voxel_table(config: ICPConfig, map_state: lm.LocalMapState,
@@ -340,14 +383,15 @@ def frame_voxel_table(config: ICPConfig, map_state: lm.LocalMapState,
     """The voxel table of a frame: the stored keyframes in the predicted
     frame, less the latest keyframe once the map holds two, grid-sampled,
     bucketed by cells of ``voxel_size`` (``2·voxel_size`` for the octant
-    neighbourhood)."""
+    neighbourhood). Takes a leading sequence axis."""
     cell = config.voxel_size * (2.0 if config.voxel_neighborhood == 8 else 1.0)
     flat_pts, flat_nrm, flat_ok = lm.flatten_map_points(map_state, predicted)
     if config.voxel_skip_latest_keyframe:
-        k, p = map_state.points.shape[:2]
-        latest = (map_state.next_slot.to(torch.int64) - 1) % k
+        k, p = map_state.points.shape[-3:-1]
+        latest = (map_state.next_slot.to(torch.int64)[..., None] - 1) % k
         slot_ids = torch.arange(k, device=flat_ok.device).repeat_interleave(p)
-        multi = torch.sum(map_state.valid) > 1.5  # a 1-keyframe map is used
+        # a 1-keyframe map is used
+        multi = (torch.sum(map_state.valid, dim=-1) > 1.5)[..., None]
         flat_ok = torch.where(multi & (slot_ids == latest), 0.0, flat_ok)
     if config.voxel_fused_build and config.voxel_sample_size > 0:
         return lm.build_voxel_table_fused(
@@ -368,7 +412,22 @@ def process_frame(
 ) -> Tuple[OdometryState, FrameResult]:
     """One odometry step on ``points (num_points, 3)``, zero rows = padding.
     ``stats`` (a :class:`StepStats`) counts the step's iterations and host
-    reads."""
+    reads. The batched step at S = 1 (views in and out: no launch)."""
+    new_state, result = process_frame_batched(
+        config, state_from_leaves(x[None] for x in state_leaves(state)), points[None], stats)
+    return (state_from_leaves(x[0] for x in state_leaves(new_state)),
+            FrameResult(*(x[0] for x in result)))
+
+
+def process_frame_batched(
+    config: ICPConfig, state: OdometryState, points: torch.Tensor,
+    stats: Optional[StepStats] = None,
+) -> Tuple[OdometryState, FrameResult]:
+    """One odometry step of S independent sequences: every state leaf and
+    ``points (S, num_points, 3)`` carry a leading sequence axis, as the
+    reference's ``vmap`` over ``process_frame``. Each sequence's result is
+    the one its own step gives; the host reads of the step do not grow
+    with S."""
     with full_fp32_products():
         return _process_frame(config, state, points, stats or StepStats())
 
@@ -376,7 +435,7 @@ def process_frame(
 def _process_frame(config: ICPConfig, state: OdometryState, points: torch.Tensor,
                    stats: StepStats) -> Tuple[OdometryState, FrameResult]:
     proj = config.projector
-    dtype, dev = points.dtype, points.device
+    s, dtype, dev = points.shape[0], points.dtype, points.device
     eye4 = torch.eye(4, dtype=dtype, device=dev)
     finite = torch.all(torch.isfinite(points), dim=-1, keepdim=True)
     points = torch.where(finite, points, 0.0)
@@ -386,21 +445,31 @@ def _process_frame(config: ICPConfig, state: OdometryState, points: torch.Tensor
     if config.bev_bootstrap:
         rel_prior = _bev_prior(config, state, points, valid, dtype)
     predicted = state.pose @ rel_prior
-    empty_map = torch.sum(state.map.valid) == 0
+    empty_map = torch.sum(state.map.valid, dim=-1) == 0
     new_valid = torch.where(empty_map, 0.0, 1.0).to(dtype)
+
+    def select(cond, new, old):
+        return torch.where(cond.reshape(cond.shape + (1,) * (new.dim() - 1)), new, old)
 
     table = None
     if config.association == "voxel":
-        refresh = True
         if config.voxel_rebuild_every > 1:
-            refresh = stats.read((state.model_valid == 0) | (
-                torch.remainder(state.frame_idx, config.voxel_rebuild_every) == 0))
-        if refresh:
+            refresh = (state.model_valid == 0) | (
+                torch.remainder(state.frame_idx, config.voxel_rebuild_every) == 0)
+            # one sequence reads its flag and skips the build; several build
+            # and select, as the reference's lax.cond under vmap does
+            if s == 1 and not stats.read(refresh)[0]:
+                table = lm.VoxelTable(state.vox_pts, state.vox_nrm)
+                table_pose, table_valid = state.model_pose, state.model_valid
+            else:
+                built = frame_voxel_table(config, state.map, predicted)
+                table = lm.VoxelTable(select(refresh, built.points, state.vox_pts),
+                                      select(refresh, built.normals, state.vox_nrm))
+                table_pose = select(refresh, predicted, state.model_pose)
+                table_valid = torch.where(refresh, new_valid, state.model_valid)
+        else:
             table = frame_voxel_table(config, state.map, predicted)
             table_pose, table_valid = predicted, new_valid
-        else:
-            table = lm.VoxelTable(state.vox_pts, state.vox_nrm)
-            table_pose, table_valid = state.model_pose, state.model_valid
 
         assoc_cache_fns = None
         if config.voxel_candidate_cache:
@@ -429,18 +498,21 @@ def _process_frame(config: ICPConfig, state: OdometryState, points: torch.Tensor
             config, assoc_fn, points, valid, init_delta, assoc_cache_fns, stats)
         new_pose = _normalize_or_nan(table_pose @ delta)
     else:
-        stale_tw = se3.log((se3.inverse(state.model_pose) @ predicted)[None])[0]
-        stale = (torch.linalg.norm(stale_tw[:3]) > config.model_rebuild_trans) | (
-            torch.linalg.norm(stale_tw[3:]) * (180.0 / math.pi) > config.model_rebuild_rot)
+        stale_tw = se3.log(se3.inverse(state.model_pose) @ predicted)
+        stale = (torch.linalg.norm(stale_tw[..., :3], dim=-1) > config.model_rebuild_trans) | (
+            torch.linalg.norm(stale_tw[..., 3:], dim=-1) * (180.0 / math.pi)
+            > config.model_rebuild_rot)
         rebuild = stale | (state.model_valid == 0)
-        if config.model_rebuild_trans == 0 and config.model_rebuild_rot == 0:
-            built = lm.build_model_map(state.map, predicted, proj)
-            model = torch.where(rebuild, built, state.model)
-            model_pose = torch.where(rebuild, predicted, state.model_pose)
-        elif stats.read(rebuild):
-            model, model_pose = lm.build_model_map(state.map, predicted, proj), predicted
-        else:
+        lazy = config.model_rebuild_trans != 0 or config.model_rebuild_rot != 0
+        # with both thresholds 0 every frame that moved is stale: build and
+        # select, no read. One sequence with a threshold set reads its flag
+        # to skip the build; several build and select.
+        if lazy and s == 1 and not stats.read(rebuild)[0]:
             model, model_pose = state.model, state.model_pose
+        else:
+            built = lm.build_model_map(state.map, predicted, proj)
+            model = select(rebuild, built, state.model)
+            model_pose = select(rebuild, predicted, state.model_pose)
         model_valid = torch.where(rebuild, new_valid, state.model_valid)
         init_delta = se3.inverse(model_pose) @ predicted
 
@@ -451,13 +523,13 @@ def _process_frame(config: ICPConfig, state: OdometryState, points: torch.Tensor
             config, assoc_fn, points, valid, init_delta, stats=stats)
         new_pose = _normalize_or_nan(model_pose @ delta)
 
-    new_pose = torch.where(torch.all(torch.isfinite(new_pose)), new_pose, predicted)
-    new_pose = torch.where(empty_map, state.pose, new_pose)
-    rel = torch.where(empty_map, eye4, se3.inverse(state.pose) @ new_pose)
+    new_pose = select(_all_finite(new_pose), new_pose, predicted)
+    new_pose = select(empty_map, state.pose, new_pose)
+    rel = select(empty_map, eye4.expand(s, 4, 4), se3.inverse(state.pose) @ new_pose)
 
-    kf_rel = se3.log((se3.inverse(state.last_kf_pose) @ new_pose)[None])[0]
-    trans_mag = torch.linalg.norm(kf_rel[:3])
-    rot_mag_deg = torch.linalg.norm(kf_rel[3:]) * (180.0 / math.pi)
+    kf_rel = se3.log(se3.inverse(state.last_kf_pose) @ new_pose)
+    trans_mag = torch.linalg.norm(kf_rel[..., :3], dim=-1)
+    rot_mag_deg = torch.linalg.norm(kf_rel[..., 3:], dim=-1) * (180.0 / math.pi)
     do_insert = (trans_mag > config.threshold_trans) | (
         rot_mag_deg > config.threshold_rot) | empty_map
 
@@ -465,23 +537,23 @@ def _process_frame(config: ICPConfig, state: OdometryState, points: torch.Tensor
     # point's normal at its pixel (points that lost the z-buffer take the
     # winner's normal)
     rows, cols, depth = spherical_pixel_coords(
-        points[None], proj.height, proj.width, proj.min_vertical_fov, proj.max_vertical_fov)
-    vmap = zbuffer_scatter(points[None], rows, cols, depth, proj.height, proj.width)
-    normal_map = compute_normal_map(vmap, config.normal_kernel_size)[0]
-    r_i = torch.clamp(torch.round(rows[0]).to(torch.int64), 0, proj.height - 1)
-    c_i = torch.clamp(torch.round(cols[0]).to(torch.int64), 0, proj.width - 1)
-    pt_normals = normal_map[r_i, c_i]
+        points, proj.height, proj.width, proj.min_vertical_fov, proj.max_vertical_fov)
+    vmap = zbuffer_scatter(points, rows, cols, depth, proj.height, proj.width)
+    normal_map = compute_normal_map(vmap, config.normal_kernel_size)
+    r_i = torch.clamp(torch.round(rows).to(torch.int64), 0, proj.height - 1)
+    c_i = torch.clamp(torch.round(cols).to(torch.int64), 0, proj.width - 1)
+    pt_normals = normal_map[lm.batch_index(tuple(r_i.shape), dev), r_i, c_i]
     pt_ok = valid * (torch.linalg.norm(pt_normals, dim=-1) > 0.5)
     st = config.map_stride
     new_map = lm.insert_keyframe(
-        state.map, points[::st], pt_normals[::st], pt_ok[::st], new_pose, do_insert)
+        state.map, points[:, ::st], pt_normals[:, ::st], pt_ok[:, ::st], new_pose, do_insert)
 
     lazy_vox = config.association == "voxel" and config.voxel_rebuild_every > 1
     new_state = OdometryState(
         map=new_map,
         pose=new_pose,
         last_rel=rel,
-        last_kf_pose=torch.where(do_insert, new_pose, state.last_kf_pose),
+        last_kf_pose=select(do_insert, new_pose, state.last_kf_pose),
         frame_idx=state.frame_idx + 1,
         prev_scan=points,
         model=model,
@@ -661,3 +733,70 @@ def dequantize_scans(config: ICPConfig, pts: torch.Tensor) -> torch.Tensor:
     if config.transfer_dtype == "int16":
         return pts.to(torch.float32) * config.transfer_scale
     return pts
+
+
+def init_states(config: ICPConfig, n_sequences: int, dtype=torch.float32,
+                device: Union[str, torch.device] = "cuda") -> OdometryState:
+    """:func:`init_state` of ``n_sequences`` sequences: every leaf with a
+    leading sequence axis."""
+    one = init_state(config, dtype, device)
+    return state_from_leaves(
+        x.expand((n_sequences,) + tuple(x.shape)).clone() for x in state_leaves(one))
+
+
+class BatchedICPOdometry:
+    """S independent sequences advance together, one batched step a frame
+    (:func:`process_frame_batched`): the counterpart of the reference's
+    ``vmap`` over ``process_sequence``. Runs on ``device``, CUDA unless the
+    caller asks for the CPU::
+
+        odo = BatchedICPOdometry(ICPConfig(), device="cuda")
+        odo.init(n_sequences=11)
+        poses = odo.process_chunk(scans)   # (S, T, N, 3) -> (S, T, 4, 4)
+
+    The voxel candidate cache is turned off, as the reference turns it off
+    under ``vmap`` (its refresh would gather for every sequence anyway).
+    ``iterations`` holds, a frame, the Gauss-Newton iterations of each
+    sequence; ``host_reads`` the host reads of each batched step.
+    """
+
+    def __init__(self, config: Optional[ICPConfig] = None,
+                 device: Union[str, torch.device] = "cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: the sequence axis sharded over devices is parallel/, ROADMAP Queue A 9")
+        config = config or ICPConfig()
+        if config.association == "voxel" and config.voxel_candidate_cache:
+            config = dataclasses.replace(config, voxel_candidate_cache=False)
+        self.config = config
+        self.device = resolve_device(device)
+        self.states: Optional[OdometryState] = None
+        self.iterations: List[List[int]] = []
+        self.host_reads: List[int] = []
+        self._pose_chunks: list = []
+
+    def init(self, n_sequences: int):
+        self.states = init_states(self.config, n_sequences, device=self.device)
+        self.iterations, self.host_reads, self._pose_chunks = [], [], []
+
+    def process_chunk(self, scans: np.ndarray) -> np.ndarray:
+        """``scans (S, T, N, 3)`` → absolute poses ``(S, T, 4, 4)`` (numpy):
+        one upload, T batched steps, one fetch."""
+        assert self.states is not None, "init() first"
+        q = torch.from_numpy(np.ascontiguousarray(quantize_scans(self.config, scans)))
+        frames = dequantize_scans(self.config, q.to(self.device)).transpose(0, 1).contiguous()
+        poses = []
+        for t in range(frames.shape[0]):
+            stats = StepStats()
+            self.states, result = process_frame_batched(self.config, self.states, frames[t],
+                                                        stats)
+            poses.append(result.pose)
+            self.iterations.append(stats.sequence_iterations)
+            self.host_reads.append(stats.host_reads + (t == 0))  # + the fetch
+        out = torch.stack(poses, dim=1).cpu().numpy()
+        self._pose_chunks.append(out)
+        return out
+
+    def absolute_poses(self) -> np.ndarray:
+        """All processed frames so far: ``(S, T_total, 4, 4)``."""
+        return np.concatenate(self._pose_chunks, axis=1)

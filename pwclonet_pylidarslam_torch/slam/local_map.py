@@ -14,10 +14,15 @@ tensors. The sorts are stable, ties of an ``argmin`` go to the first index,
 and each scatter writes every kept destination once: what is dropped goes
 to a spill row that is cut off. So a table is the same on the CPU and on
 CUDA.
+
+Every function also takes a leading sequence axis S on all of its tensors
+(``BatchedICPOdometry``): each sequence is mapped, sorted and scattered on
+its own row, so its result is the one it would get alone.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -45,6 +50,25 @@ class LocalMapState(NamedTuple):
     next_slot: torch.Tensor  # () int32, FIFO write pointer
 
 
+@functools.lru_cache(maxsize=32)
+def batch_index(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The sequence index of every element of ``shape`` (``shape[0]`` = S),
+    to index the sequence axis beside index tensors of that shape. Cached,
+    so a Gauss-Newton iteration launches nothing to make it; whole, since
+    CUDA's indexing copies an index it has to broadcast."""
+    s = shape[0]
+    return torch.arange(s, device=device).reshape((s,) + (1,) * (len(shape) - 1)).expand(
+        shape).contiguous()
+
+
+def _lead(*xs: torch.Tensor, rank: int):
+    """``xs`` with a sequence axis of 1 in front where the first has only
+    ``rank`` dims (views: no launch); and whether it was added."""
+    if xs[0].dim() > rank:
+        return xs, False
+    return tuple(x.unsqueeze(0) for x in xs), True
+
+
 def init_local_map(
     capacity: int, points_per_frame: int, dtype=torch.float32, device="cpu"
 ) -> LocalMapState:
@@ -68,14 +92,15 @@ def insert_keyframe(
 ) -> LocalMapState:
     """Insert a keyframe at the FIFO slot where ``do_insert`` (a bool
     tensor) holds; otherwise return the same contents. A masked write: the
-    slot is selected on the device, with no host read."""
-    k = state.points.shape[0]
-    slot = state.next_slot.to(torch.int64) % k
-    write = (torch.arange(k, device=slot.device) == slot) & do_insert  # (K,)
+    slot is selected on the device, with no host read. With a sequence
+    axis, each sequence has its own ``do_insert`` and write pointer."""
+    k = state.points.shape[-3]
+    slot = state.next_slot.to(torch.int64)[..., None] % k
+    write = (torch.arange(k, device=slot.device) == slot) & do_insert[..., None]  # (..., K)
 
     def mix(buf, new):
-        sel = write.reshape((k,) + (1,) * (buf.dim() - 1))
-        return torch.where(sel, new.to(buf.dtype).unsqueeze(0), buf)
+        sel = write.reshape(write.shape + (1,) * (buf.dim() - write.dim()))
+        return torch.where(sel, new.to(buf.dtype).unsqueeze(write.dim() - 1), buf)
 
     return LocalMapState(
         points=mix(state.points, points),
@@ -88,36 +113,39 @@ def insert_keyframe(
 
 
 def _rotate(rot: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
-    """``rot (K, 3, 3)`` applied to ``vecs (K, P, 3)``, elementwise."""
-    return torch.sum(rot[:, None, :, :] * vecs[:, :, None, :], dim=-1)
+    """``rot (..., K, 3, 3)`` applied to ``vecs (..., K, P, 3)``, elementwise."""
+    return torch.sum(rot[..., None, :, :] * vecs[..., :, None, :], dim=-1)
 
 
 def flatten_map_points(
     state: LocalMapState, query_pose: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All stored keyframe points and normals brought into the query frame.
-    Returns ``(points (K·P, 3), normals (K·P, 3), valid (K·P,))``."""
-    k, p, _ = state.points.shape
-    rel = se3.inverse(query_pose)[None] @ state.poses
+    Returns ``(points (..., K·P, 3), normals (..., K·P, 3), valid (..., K·P))``."""
+    *lead, k, p, _ = state.points.shape
+    rel = se3.inverse(query_pose)[..., None, :, :] @ state.poses
     pts_q = se3.transform(rel, state.points)
-    nrm_q = _rotate(rel[:, :3, :3], state.normals)
-    pt_ok = state.pt_valid * state.valid[:, None]
-    return pts_q.reshape(k * p, 3), nrm_q.reshape(k * p, 3), pt_ok.reshape(k * p)
+    nrm_q = _rotate(rel[..., :3, :3], state.normals)
+    pt_ok = state.pt_valid * state.valid[..., None]
+    return (pts_q.reshape(*lead, k * p, 3), nrm_q.reshape(*lead, k * p, 3),
+            pt_ok.reshape(*lead, k * p))
 
 
 def build_model_map(
     state: LocalMapState, query_pose: torch.Tensor, projector: SphericalProjector
 ) -> torch.Tensor:
-    """Aggregate the stored keyframes into one model map ``(H, W, 6)``
+    """Aggregate the stored keyframes into one model map ``(..., H, W, 6)``
     (xyz + normal) in the query frame; the nearest point wins a pixel."""
     flat_pts, flat_nrm, flat_valid = flatten_map_points(state, query_pose)
+    (flat_pts, flat_nrm, flat_valid), single = _lead(flat_pts, flat_nrm, flat_valid, rank=2)
     rows, cols, depth = spherical_pixel_coords(
-        flat_pts[None], projector.height, projector.width,
+        flat_pts, projector.height, projector.width,
         projector.min_vertical_fov, projector.max_vertical_fov,
     )
-    depth = torch.where(flat_valid[None] > 0, depth, 0.0)
-    chan = torch.cat([flat_pts, flat_nrm], dim=-1)[None]
-    return zbuffer_scatter(chan, rows, cols, depth, projector.height, projector.width)[0]
+    depth = torch.where(flat_valid > 0, depth, 0.0)
+    chan = torch.cat([flat_pts, flat_nrm], dim=-1)
+    out = zbuffer_scatter(chan, rows, cols, depth, projector.height, projector.width)
+    return out[0] if single else out
 
 
 def associate(
@@ -126,26 +154,28 @@ def associate(
     projector: SphericalProjector,
     max_distance: float = 0.5,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Projective association of ``points (N, 3)`` against a model
-    ``(H, W, 6)``: each point takes the model pixel it projects to; empty
-    pixels and matches at ``max_distance`` or farther are masked out.
-    Returns ``(targets (N,3), normals (N,3), weights (N,))``."""
+    """Projective association of ``points (..., N, 3)`` against a model
+    ``(..., H, W, 6)``: each point takes the model pixel it projects to;
+    empty pixels and matches at ``max_distance`` or farther are masked out.
+    Returns ``(targets (..., N,3), normals (..., N,3), weights (..., N))``."""
+    (model, points), single = _lead(model, points, rank=3)
     rows, cols, depth = spherical_pixel_coords(
-        points[None], projector.height, projector.width,
+        points, projector.height, projector.width,
         projector.min_vertical_fov, projector.max_vertical_fov,
     )
-    r_i = torch.clamp(torch.round(rows[0]).to(torch.int64), 0, projector.height - 1)
-    c_i = torch.clamp(torch.round(cols[0]).to(torch.int64), 0, projector.width - 1)
-    hit = model[r_i, c_i]
+    r_i = torch.clamp(torch.round(rows).to(torch.int64), 0, projector.height - 1)
+    c_i = torch.clamp(torch.round(cols).to(torch.int64), 0, projector.width - 1)
+    hit = model[batch_index(tuple(r_i.shape), model.device), r_i, c_i]
     target, normal = hit[..., :3], hit[..., 3:]
     dist = torch.linalg.norm(points - target, dim=-1)
     ok = (
-        (depth[0] > 0)
+        (depth > 0)
         & (torch.linalg.norm(target, dim=-1) > 0)
         & (torch.linalg.norm(normal, dim=-1) > 0.5)
         & (dist < max_distance)
     )
-    return target, normal, ok.to(points.dtype)
+    out = (target, normal, ok.to(points.dtype))
+    return tuple(x[0] for x in out) if single else out
 
 
 # --- voxel-hash nearest-neighbour map ------------------------------------
@@ -155,22 +185,29 @@ class VoxelTable(NamedTuple):
     """Bucketed point store; empty slots hold the 1e9 sentinel point and a
     zero normal."""
 
-    points: torch.Tensor  # (table_size, bucket_cap, 3)
-    normals: torch.Tensor  # (table_size, bucket_cap, 3)
+    points: torch.Tensor  # ([S,] table_size, bucket_cap, 3)
+    normals: torch.Tensor  # ([S,] table_size, bucket_cap, 3)
 
 
 def _scatter_table(points, normals, order, dest, rows: int, bucket_cap: int) -> VoxelTable:
-    """Write the sorted points to their slots; ``dest`` is unique except
-    for the spill slot ``rows·cap``, which is cut off."""
+    """Write the sorted points ``(S, M, 3)`` to their slots; ``dest (S, M)``
+    is unique in a row except for the spill slot ``rows·cap``, which is cut
+    off."""
+    s = points.shape[0]
     slots = rows * bucket_cap + 1
-    table_pts = torch.full((slots, 3), 1e9, dtype=points.dtype, device=points.device)
-    table_nrm = torch.zeros((slots, 3), dtype=normals.dtype, device=normals.device)
-    table_pts[dest] = points[order]
-    table_nrm[dest] = normals[order]
+    table_pts = torch.full((s, slots, 3), 1e9, dtype=points.dtype, device=points.device)
+    table_nrm = torch.zeros((s, slots, 3), dtype=normals.dtype, device=normals.device)
+    seq = batch_index(tuple(order.shape), points.device)
+    table_pts[seq, dest] = points[seq, order]
+    table_nrm[seq, dest] = normals[seq, order]
     return VoxelTable(
-        points=table_pts[:-1].reshape(rows, bucket_cap, 3),
-        normals=table_nrm[:-1].reshape(rows, bucket_cap, 3),
+        points=table_pts[:, :-1].reshape(s, rows, bucket_cap, 3),
+        normals=table_nrm[:, :-1].reshape(s, rows, bucket_cap, 3),
     )
+
+
+def _unlead(table: VoxelTable, single: bool) -> VoxelTable:
+    return VoxelTable(table.points[0], table.normals[0]) if single else table
 
 
 def scatter_buckets(
@@ -181,19 +218,21 @@ def scatter_buckets(
     rows: int,
     bucket_cap: int,
 ) -> VoxelTable:
-    """Bucket ``points (M,3)`` by ``row_id (M,)`` (rows where ``valid_rows``
-    is false are dropped) into a ``(rows, bucket_cap, 3)`` store: one stable
-    sort, then one scatter. A bucket keeps its ``bucket_cap`` lowest-index
-    points."""
-    m = points.shape[0]
+    """Bucket ``points ([S,] M,3)`` by ``row_id ([S,] M)`` (rows where
+    ``valid_rows`` is false are dropped) into a ``([S,] rows, bucket_cap, 3)``
+    store: one stable sort a sequence, then one scatter. A bucket keeps its
+    ``bucket_cap`` lowest-index points."""
+    (points, normals, valid_rows, row_id), single = _lead(
+        points, normals, valid_rows, row_id, rank=2)
+    m = points.shape[1]
     h = torch.where(valid_rows, row_id.to(torch.int64), rows)
-    h_sorted, order = torch.sort(h, stable=True)
+    h_sorted, order = torch.sort(h, dim=-1, stable=True)
     first_of_bucket = torch.searchsorted(h_sorted, h_sorted, side="left")
     slot = torch.arange(m, device=points.device) - first_of_bucket
     keep = (slot < bucket_cap) & (h_sorted < rows)
     dest = h_sorted * bucket_cap + torch.clamp(slot, 0, bucket_cap - 1)
     dest = torch.where(keep, dest, rows * bucket_cap)
-    return _scatter_table(points, normals, order, dest, rows, bucket_cap)
+    return _unlead(_scatter_table(points, normals, order, dest, rows, bucket_cap), single)
 
 
 def build_voxel_table(
@@ -204,9 +243,9 @@ def build_voxel_table(
     table_size: int = 1 << 16,
     bucket_cap: int = 8,
 ) -> VoxelTable:
-    """Bucket ``points (M, 3)`` by the spatial hash of their
-    ``voxel_size`` cell; ``valid (M,)`` 0/1 rows. Points past a bucket's
-    ``bucket_cap`` are dropped."""
+    """Bucket ``points ([S,] M, 3)`` by the spatial hash of their
+    ``voxel_size`` cell; ``valid ([S,] M)`` 0/1 rows. Points past a
+    bucket's ``bucket_cap`` are dropped."""
     assert table_size & (table_size - 1) == 0, "table_size must be a power of 2"
     row_id = voxel_hash(floor_voxels(points, voxel_size)) & (table_size - 1)
     return scatter_buckets(points, normals, valid > 0, row_id, table_size, bucket_cap)
@@ -231,29 +270,30 @@ def build_voxel_table_fused(
     uint32 arithmetic, so the key is held as int64 values of the same bits,
     which sort in the same order. Dedup is per (bucket, subcell), the lowest
     index wins, and a bucket keeps its first ``bucket_cap`` winners in key
-    order.
+    order. With a sequence axis, each sequence sorts its own row of keys.
     """
     assert table_size & (table_size - 1) == 0, "table_size must be a power of 2"
+    (points, normals, valid), single = _lead(points, normals, valid, rank=2)
     row_bits = int(table_size - 1).bit_length()
     sub_bits = 31 - row_bits
     row = (voxel_hash(floor_voxels(points, voxel_size)) & (table_size - 1)).to(torch.int64)
     sub = voxel_hash(floor_voxels(points, sample_size)).to(torch.int64) & UINT32_MAX
     sub = sub & ((1 << sub_bits) - 1)
     key = torch.where(valid > 0, (row << sub_bits) | sub, UINT32_MAX)
-    key_sorted, order = torch.sort(key, stable=True)
+    key_sorted, order = torch.sort(key, dim=-1, stable=True)
     ok_sorted = key_sorted != UINT32_MAX
     new_group = torch.ones_like(ok_sorted)
-    new_group[1:] = key_sorted[1:] != key_sorted[:-1]
+    new_group[:, 1:] = key_sorted[:, 1:] != key_sorted[:, :-1]
     first_keep = new_group & ok_sorted
     row_sorted = key_sorted >> sub_bits
     first_of_row = torch.searchsorted(row_sorted, row_sorted, side="left")
     keep_i = first_keep.to(torch.int64)
-    kept_before = torch.cumsum(keep_i, 0) - keep_i
-    slot = kept_before - kept_before[first_of_row]
+    kept_before = torch.cumsum(keep_i, -1) - keep_i
+    slot = kept_before - torch.gather(kept_before, 1, first_of_row)
     keep = first_keep & (slot < bucket_cap)
     dest = row_sorted * bucket_cap + torch.clamp(slot, 0, bucket_cap - 1)
     dest = torch.where(keep, dest, table_size * bucket_cap)
-    return _scatter_table(points, normals, order, dest, table_size, bucket_cap)
+    return _unlead(_scatter_table(points, normals, order, dest, table_size, bucket_cap), single)
 
 
 def _octant_offsets(device) -> torch.Tensor:
@@ -269,7 +309,7 @@ def _cube_offsets(device) -> torch.Tensor:
 def neighbor_bucket_hashes(
     query: torch.Tensor, voxel_size: float, table_size: int, neighborhood: int
 ) -> torch.Tensor:
-    """Table rows of each query's neighbour buckets ``(N, k)``.
+    """Table rows of each query's neighbour buckets ``(..., N, k)``.
 
     ``neighborhood=8``: the half-offset 2x2x2 cells of ``2·voxel_size``
     nearest to the query (build the table with that cell size); ``27``: the
@@ -279,10 +319,10 @@ def neighbor_bucket_hashes(
         t = query / (2.0 * voxel_size)
         c = torch.floor(t).to(torch.int32)
         shift = torch.where(t - c >= 0.5, 0, -1).to(torch.int32)
-        neigh = (c + shift)[:, None, :] + _octant_offsets(query.device)[None].to(torch.int32)
+        neigh = (c + shift)[..., None, :] + _octant_offsets(query.device).to(torch.int32)
     else:
         vox_q = floor_voxels(query, voxel_size)
-        neigh = vox_q[:, None, :] + _cube_offsets(query.device)[None].to(torch.int32)
+        neigh = vox_q[..., None, :] + _cube_offsets(query.device).to(torch.int32)
     return (voxel_hash(neigh) & (table_size - 1)).to(torch.int64)
 
 
@@ -293,23 +333,26 @@ def voxel_nn(
     max_distance: float,
     neighborhood: int = 27,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Nearest stored point of each ``query (N, 3)`` closer than
+    """Nearest stored point of each ``query ([S,] N, 3)`` closer than
     ``max_distance``, among the neighbour buckets of
-    :func:`neighbor_bucket_hashes`. Returns ``(targets (N,3), normals (N,3),
-    weights (N,))`` like :func:`associate`."""
-    table_size, bucket_cap, _ = table.points.shape
-    n = query.shape[0]
+    :func:`neighbor_bucket_hashes` in its sequence's table. Returns
+    ``(targets ([S,] N,3), normals ([S,] N,3), weights ([S,] N))`` like
+    :func:`associate`."""
+    (tp, tn, query), single = _lead(table.points, table.normals, query, rank=3)
+    s, table_size, bucket_cap, _ = tp.shape
+    n = query.shape[1]
     h = neighbor_bucket_hashes(query, voxel_size, table_size, neighborhood)
-    k = h.shape[1]
-    cand = table.points[h].reshape(n, k * bucket_cap, 3)
-    d2 = torch.sum((cand - query[:, None, :]) ** 2, dim=-1)
+    k = h.shape[-1]
+    cand = tp[batch_index(tuple(h.shape), tp.device), h].reshape(s, n, k * bucket_cap, 3)
+    d2 = torch.sum((cand - query[..., None, :]) ** 2, dim=-1)
     best = torch.argmin(d2, dim=-1)
-    best_d2 = torch.gather(d2, 1, best[:, None])[:, 0]
-    target = torch.gather(cand, 1, best[:, None, None].expand(n, 1, 3))[:, 0]
-    best_bucket = torch.gather(h, 1, (best // bucket_cap)[:, None])[:, 0]
-    normal = table.normals[best_bucket, best % bucket_cap]
+    best_d2 = torch.gather(d2, 2, best[..., None])[..., 0]
+    target = torch.gather(cand, 2, best[..., None, None].expand(s, n, 1, 3))[..., 0, :]
+    best_bucket = torch.gather(h, 2, (best // bucket_cap)[..., None])[..., 0]
+    normal = tn[batch_index(tuple(best.shape), tn.device), best_bucket, best % bucket_cap]
     ok = (best_d2 < max_distance * max_distance) & (torch.linalg.norm(normal, dim=-1) > 0.5)
-    return target, normal, ok.to(query.dtype)
+    out = (target, normal, ok.to(query.dtype))
+    return tuple(x[0] for x in out) if single else out
 
 
 def gather_voxel_candidates(
@@ -319,14 +362,16 @@ def gather_voxel_candidates(
     neighborhood: int = 27,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each query's neighbour-bucket candidates, gathered once:
-    ``(cand_points (N, k·cap, 3), cand_normals (N, k·cap, 3))``."""
-    table_size, bucket_cap, _ = table.points.shape
-    n = query.shape[0]
+    ``(cand_points ([S,] N, k·cap, 3), cand_normals ([S,] N, k·cap, 3))``."""
+    (tp, tn, query), single = _lead(table.points, table.normals, query, rank=3)
+    s, table_size, bucket_cap, _ = tp.shape
+    n = query.shape[1]
     h = neighbor_bucket_hashes(query, voxel_size, table_size, neighborhood)
-    k = h.shape[1]
-    cand_pts = table.points[h].reshape(n, k * bucket_cap, 3)
-    cand_nrm = table.normals[h].reshape(n, k * bucket_cap, 3)
-    return cand_pts, cand_nrm
+    k = h.shape[-1]
+    seq = batch_index(tuple(h.shape), tp.device)
+    cand_pts = tp[seq, h].reshape(s, n, k * bucket_cap, 3)
+    cand_nrm = tn[seq, h].reshape(s, n, k * bucket_cap, 3)
+    return (cand_pts[0], cand_nrm[0]) if single else (cand_pts, cand_nrm)
 
 
 def nn_from_candidates(
@@ -337,12 +382,11 @@ def nn_from_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest cached candidate of each query; same contract as
     :func:`voxel_nn`."""
-    n = query.shape[0]
-    d2 = torch.sum((cand_points - query[:, None, :]) ** 2, dim=-1)
+    d2 = torch.sum((cand_points - query[..., None, :]) ** 2, dim=-1)
     best = torch.argmin(d2, dim=-1)
-    best_d2 = torch.gather(d2, 1, best[:, None])[:, 0]
-    idx = best[:, None, None].expand(n, 1, 3)
-    target = torch.gather(cand_points, 1, idx)[:, 0]
-    normal = torch.gather(cand_normals, 1, idx)[:, 0]
+    best_d2 = torch.gather(d2, -1, best[..., None])[..., 0]
+    idx = best[..., None, None].expand(best.shape + (1, 3))
+    target = torch.gather(cand_points, -2, idx)[..., 0, :]
+    normal = torch.gather(cand_normals, -2, idx)[..., 0, :]
     ok = (best_d2 < max_distance * max_distance) & (torch.linalg.norm(normal, dim=-1) > 0.5)
     return target, normal, ok.to(query.dtype)

@@ -10,16 +10,23 @@ Usage::
 
     python run_slam_torch.py dataset=synthetic sequences=0 device=cpu log_dir=./out
 
+    python run_slam_torch.py config=kitti_batched dataset=synthetic \
+        sequences=0,1,2 synthetic_frames=32 profile_dir=./prof log_dir=./out
+
 Config is plain ``key=value`` overrides (Hydra-CLI style) over
 :class:`RunConfig`, optionally on top of ``config=<preset>`` YAML files from
 ``config/``; the resolved config and git hash go into the run directory.
-Runs on the card (``device=cuda``) unless ``device=cpu`` is given. The
-options of ``run_slam.py`` that the port does not run yet raise
-``NotImplementedError`` with the ROADMAP item that ports them.
+Runs on the card (``device=cuda``) unless ``device=cpu`` is given.
+``batched=true`` advances every sequence together through
+``BatchedICPOdometry`` (odometry only); ``profile_dir`` records a
+``torch.profiler`` trace of the run there. The options of ``run_slam.py``
+that the port does not run yet raise ``NotImplementedError`` with the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -63,12 +70,14 @@ class RunConfig:
     gps: bool = False
     gps_stride: int = 10
     gps_noise: float = 0.05
-    batched: bool = False  # BatchedICPOdometry: ROADMAP Queue A 9
+    # every sequence in one batched step a frame (BatchedICPOdometry);
+    # odometry only, the sequences cut to the shortest
+    batched: bool = False
     num_points: int = 8192
     snapshot_every_frames: int = 0  # full-pipeline snapshot cadence (0 = off)
     resume: bool = False  # continue a crashed run from its last snapshot
     gallery: bool = False  # evaluation/gallery.py: ROADMAP Queue A 11
-    profile_dir: str = ""  # utils/timer.py's profiler trace: ROADMAP Queue A 9
+    profile_dir: str = ""  # a torch.profiler trace of the run (utils/timer.py)
     synthetic_frames: int = 60
     synthetic_trajectory: str = "curve"
     device: str = "cuda"  # cuda | cpu
@@ -80,10 +89,6 @@ def check_ported(config: RunConfig) -> None:
     for key, table in NOT_PORTED.items():
         if getattr(config, key) in table:
             raise NotImplementedError(table[getattr(config, key)])
-    if config.batched:
-        raise NotImplementedError("batched=true: BatchedICPOdometry, ROADMAP Queue A 9")
-    if config.profile_dir:
-        raise NotImplementedError("profile_dir: utils/timer.py, ROADMAP Queue A 9")
     if config.gallery:
         from pwclonet_pylidarslam_torch.slam.runner import GALLERY_NOT_PORTED
 
@@ -227,6 +232,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     config = parse_cli(RunConfig, argv)
     check_ported(config)
+    if config.batched:
+        if config.with_loop_closure or config.with_backend or config.resume or config.gps:
+            raise SystemExit("batched=true is odometry-only (no loop closure/backend/gps/resume)")
+        if config.snapshot_every_frames:
+            raise SystemExit("batched=true does not support snapshots")
+        if config.odometry != "icp":
+            raise SystemExit("batched=true supports odometry=icp")
+        return run_batched(config)
 
     slam_cfg = SLAMConfig(
         with_loop_closure=config.with_loop_closure,
@@ -246,7 +259,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     os.makedirs(config.log_dir, exist_ok=True)
     dump_config(config, f"{config.log_dir}/config.yaml")
 
-    results = runner.run(build_sources(config))
+    with _trace(config):
+        results = runner.run(build_sources(config))
     for name, md in results.items():
         if md:
             print(f"{name}: t_rel={md.get('tr_err', float('nan')):.4f}% ATE={md['ATE']:.4f} m")
@@ -254,6 +268,65 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"FAILED sequences: {list(runner.failures)}")
         return 1
     return 0
+
+
+def _trace(config: RunConfig):
+    """A profiler trace into ``profile_dir`` where one is asked for."""
+    if not config.profile_dir:
+        return contextlib.nullcontext()
+    from pwclonet_pylidarslam_torch.utils.timer import profiler_trace
+
+    return profiler_trace(config.profile_dir, device=config.device)
+
+
+def run_batched(config: RunConfig) -> int:
+    """All sequences advance together: ``BatchedICPOdometry`` over chunks of
+    32 frames, the sequences cut to the shortest; each sequence's poses and
+    metrics go through ``OdometryResults``."""
+    from pwclonet_pylidarslam_torch.evaluation.results import OdometryResults
+    from pwclonet_pylidarslam_torch.slam.icp_odometry import BatchedICPOdometry, ICPConfig
+    from pwclonet_pylidarslam_torch.utils.config import dump_config
+
+    os.makedirs(config.log_dir, exist_ok=True)
+    dump_config(config, f"{config.log_dir}/config.yaml")
+    sources = build_sources(config)
+    names = list(sources)
+    t_total = min(len(src) for src in sources.values())
+    if config.max_frames:
+        t_total = min(t_total, config.max_frames)
+    odo = BatchedICPOdometry(
+        ICPConfig(
+            num_points=config.num_points,
+            association=config.association,
+            bev_bootstrap=config.bev_bootstrap,
+        ),
+        device=config.device,
+    )
+    odo.init(n_sequences=len(names))
+    with _trace(config):
+        _run_batched_chunks(config, odo, sources, t_total, chunk=32)
+    poses = odo.absolute_poses()
+    results = OdometryResults(config.log_dir)
+    for i, name in enumerate(names):
+        gt = sources[name].ground_truth()
+        md = results.add_sequence(name, poses[i], None if gt is None else np.asarray(gt)[:t_total])
+        if md:
+            print(f"{name}: t_rel={md.get('tr_err', float('nan')):.4f}% ATE={md['ATE']:.4f} m")
+    return 0
+
+
+def _run_batched_chunks(config: RunConfig, odo, sources: dict, t_total: int, chunk: int) -> None:
+    """Feed ``odo`` the sequences' frames ``[0, t_total)`` in chunks, each
+    scan sized by ``fix_scan_size`` with its frame index as the seed."""
+    from pwclonet_pylidarslam_torch.slam.icp_odometry import fix_scan_size
+
+    for start in range(0, t_total, chunk):
+        end = min(start + chunk, t_total)
+        odo.process_chunk(np.stack([
+            np.stack([fix_scan_size(np.asarray(src.scan(t))[:, :3], config.num_points, seed=t)
+                      for t in range(start, end)])
+            for src in sources.values()
+        ]))
 
 
 if __name__ == "__main__":

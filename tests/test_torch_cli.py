@@ -1,7 +1,8 @@
 """The torch CLI entry points on the CPU: ``run_slam_torch.py`` (synthetic
 data at 1024 points, 6 frames; ICP, CT-ICP elastic and rigid, then PWCLO-Net
 and PoseResNet from checkpoints of the port's trainers), then
-``replay_slam_torch.py`` on its run directory. The
+``replay_slam_torch.py`` on its run directory; ``batched=true``, its
+refusals and ``config=kitti_batched``; ``profile_dir`` in both CLIs. The
 result files are read back with the reference's readers. The options of
 ``run_slam.py`` the port does not run yet raise ``NotImplementedError``
 naming their ROADMAP item."""
@@ -129,12 +130,73 @@ def test_presets_are_accepted(preset):
 @pytest.mark.parametrize("option,item", [
     ("dataset=kitti360", "ROADMAP Queue A 9"), ("dataset=nclt", "ROADMAP Queue A 9"),
     ("dataset=rosbag", "ROADMAP Queue A 9"), ("dataset=kitti_carla", "ROADMAP Queue A 9"),
-    ("dataset=urbanloco", "ROADMAP Queue A 9"), ("batched=true", "ROADMAP Queue A 9"),
-    ("gallery=true", "ROADMAP Queue A 11"), ("profile_dir=prof", "ROADMAP Queue A 9"),
+    ("dataset=urbanloco", "ROADMAP Queue A 9"), ("gallery=true", "ROADMAP Queue A 11"),
 ])
 def test_unported_options_raise(tmp_path, option, item):
     with pytest.raises(NotImplementedError, match=item):
         run_slam_torch.main(COMMON + [option, f"log_dir={tmp_path}"])
+
+
+def test_batched_run_equals_the_library(tmp_path, capsys):
+    """batched=true over two synthetic sequences: the reference's result
+    files, and the poses of BatchedICPOdometry on the same scans."""
+    from pwclonet_pylidarslam_torch.data.synthetic import (
+        SyntheticSequenceConfig,
+        generate_sequence,
+    )
+    from pwclonet_pylidarslam_torch.slam import BatchedICPOdometry, ICPConfig
+    from pwclonet_pylidarslam_torch.slam.icp_odometry import fix_scan_size
+
+    run = tmp_path / "run"
+    argv = ["batched=true", "dataset=synthetic", "sequences=0,1", "synthetic_frames=8",
+            "num_points=1024", "device=cpu", f"log_dir={run}"]
+    assert run_slam_torch.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "synth00: t_rel=" in out and "synth01: t_rel=" in out
+    metrics = read_metrics_yaml(str(run / "metrics.yaml"))
+    assert set(metrics) == {"synth00", "synth01"} and all("ATE" in m for m in metrics.values())
+    scans = [generate_sequence(SyntheticSequenceConfig(n_frames=8, seed=s, num_points=1024),
+                               device="cpu")[0] for s in (0, 1)]
+    odo = BatchedICPOdometry(ICPConfig(num_points=1024), device="cpu")
+    odo.init(n_sequences=2)
+    odo.process_chunk(np.stack([[fix_scan_size(sc[t], 1024, seed=t) for t in range(8)]
+                                for sc in scans]))
+    for i, name in enumerate(("synth00", "synth01")):
+        rows = np.loadtxt(run / f"{name}.poses.txt")
+        assert rows.shape == (8, 12)
+        np.testing.assert_array_equal(read_poses_txt(str(run / f"{name}.poses.txt")),
+                                      odo.absolute_poses()[i].astype(np.float64))
+
+
+@pytest.mark.parametrize("option", ["with_backend=true", "with_loop_closure=true", "gps=true",
+                                    "snapshot_every_frames=5", "odometry=ct_icp"])
+def test_batched_keeps_the_references_refusals(tmp_path, option):
+    with pytest.raises(SystemExit, match="batched=true"):
+        run_slam_torch.main(COMMON + ["batched=true", option, f"log_dir={tmp_path}"])
+
+
+def test_kitti_batched_preset_parses():
+    config = parse_cli(run_slam_torch.RunConfig, ["config=kitti_batched", "dataset=synthetic"])
+    run_slam_torch.check_ported(config)
+    assert config.batched and config.odometry == "icp" and config.num_points == 8192
+    assert config.sequences == "0,1,2,3,4,5,6,7,8,9,10"
+
+
+@pytest.mark.parametrize("entry", ["run_slam_torch", "run_slam_torch_batched", "train_net_torch"])
+def test_profile_dir_writes_a_trace(tmp_path, entry):
+    prof = tmp_path / "prof"
+    if entry == "train_net_torch":
+        assert train_net_torch.main([
+            "do_train=true", "dataset=synthetic_world", "device=cpu", "num_points=256",
+            "synthetic_frames=3", "num_epochs=1", "batch_size=2", "train_sequences=0",
+            "eval_sequences=0", f"log_dir={tmp_path / 'train'}", f"profile_dir={prof}"]) == 0
+    else:
+        batched = ["batched=true"] if entry.endswith("batched") else []
+        assert run_slam_torch.main(COMMON + batched + [
+            "synthetic_frames=3", f"log_dir={tmp_path / 'run'}", f"profile_dir={prof}"]) == 0
+    traces = list(prof.glob("trace_*.json"))
+    assert len(traces) == 1
+    assert '"traceEvents"' in traces[0].read_text()
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``pwclonet_pylidarslam_torch``, and
 neither ``chip_smoke.py`` (nor ``tools/time_point_kernels.py`` and
-``tools/cast_check.py``, which it imports) nor the torch entry points (``train_net_torch.py``,
+``tools/cast_check.py``, which it imports, and ``tools/batched_step_nudges.py``, which
+imports it) nor the torch entry points (``train_net_torch.py``,
 ``run_slam_torch.py``, ``replay_slam_torch.py``), imports JAX or the JAX
 package, and its entry points run on CUDA unless the caller asks for the CPU."""
 
@@ -18,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pwclonet_pylidarslam_tp
 SOURCES = sorted((REPO / "pwclonet_pylidarslam_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "train_net_torch.py", REPO / "run_slam_torch.py",
     REPO / "replay_slam_torch.py", REPO / "tools" / "time_point_kernels.py",
-    REPO / "tools" / "cast_check.py"]
+    REPO / "tools" / "cast_check.py", REPO / "tools" / "batched_step_nudges.py"]
 
 
 def _imported_modules(path: Path):

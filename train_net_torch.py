@@ -131,6 +131,7 @@ class Config:
     # dataset=synthetic_world: frames per generated world sequence (sequence
     # ids act as world seeds; train/eval/test use disjoint seed ranges)
     synthetic_frames: int = 240
+    profile_dir: str = ""  # a torch.profiler trace of the training (utils/timer.py)
     fused_eval: bool = False  # test mode: the fused eval kernels
     posenet_loss: str = "supervised"  # model=posenet: supervised | unsupervised
     # model=posenet: frames a window (2: pairs; more: one pose per pair)
@@ -428,7 +429,14 @@ def run_train(config: Config) -> int:
     trainer = _trainer(config, num_epochs=config.num_epochs)
     dump_config(config, f"{config.log_dir}/config.yaml")
     train_fn, eval_fn = make_batch_fns(config)
-    _print_done(trainer.fit(train_fn, eval_fn))
+    if config.profile_dir:
+        from pwclonet_pylidarslam_torch.utils.timer import profiler_trace
+
+        with profiler_trace(config.profile_dir, device=config.device):
+            history = trainer.fit(train_fn, eval_fn)
+    else:
+        history = trainer.fit(train_fn, eval_fn)
+    _print_done(history)
     return 0
 
 
