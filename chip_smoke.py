@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Run the PyTorch port (PWCLO-Net odometry and training, classic ICP, SLAM,
 CT-ICP, PoseResNet, the PointNet++ cls/semseg family, the KITTI-profile
-synthetic world) on one NVIDIA GPU and check it.
+synthetic world, batched ICP, the parallel layer) on one NVIDIA GPU and
+check it.
 
     python3 chip_smoke.py [--profile] [--kernels] [--icp] [--slam] [--ct_icp] [--posenet]
-                          [--cls_seg] [--world] [--batched]
+                          [--cls_seg] [--world] [--batched] [--parallel]
 
 from the root of the repository, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each of which must pass:
@@ -222,6 +223,23 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    with ``profile_dir``: the result files, and CUDA kernel events in the
    trace.
 
+14. The parallel layer (``pwclonet_pylidarslam_torch/parallel/``) on a NCCL
+   group of this process alone (the card's machine has one H100), last,
+   since it sets the group up and destroys it: ``make_mesh(1, 1)``, and
+   ``make_mesh(2, 1)`` refused; ``solve_point_to_plane_sharded`` on one
+   8192-point alignment from a KITTI-profile frame, the voxel table of
+   ``ICPConfig()`` built sharded and queried by 8192 points,
+   ``optimize_sharded`` on phase 8's 200-node circle (the scatter-add kernel,
+   its launches counted exactly) and ``BatchedICPOdometry(mesh=...)`` over
+   phase 13's 11 worlds x 8 frames, projective, each ``torch.equal`` to its
+   unsharded counterpart; ``make_parallel_train_step`` at full width (the
+   default ``PWCLONetConfig``, 8192 points, batch 8), two steps from one
+   seeded state against ``train_step`` at the reference's bar (loss rtol
+   1e-4; the parameters' differences under 1e-4 at the 99.9th percentile and
+   1e-2 at most), its launches a step exactly a train step's, the ms a step
+   of both printed; and ``measure_scaling`` at mesh size 1 (batch 8 a
+   device), whose JSON line it prints.
+
 Prints the card's name and power limit, a ``{"metrics": ...}`` line, a
 ``{"variants": ...}`` line (the FPS kernel's time at each cluster size and
 thread count, the kNN kernel's at each number of queries a block, the MLP
@@ -240,7 +258,9 @@ alone (no build) and print their metrics (no last line); ``--cls_seg``
 builds and runs phase 11 alone and prints its metrics (no last line);
 ``--world`` builds and runs phase 12 alone and prints its metrics and a
 kernels line of the six kernels on its path (no last line); ``--batched``
-runs phase 13 alone (no build) and prints its metrics (no last line).
+runs phase 13 alone (no build) and prints its metrics (no last line);
+``--parallel`` builds and runs phase 14 alone and prints its metrics (no
+last line).
 """
 
 from __future__ import annotations
@@ -266,6 +286,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -322,6 +343,16 @@ from pwclonet_pylidarslam_torch.evaluation.results import read_poses_txt  # noqa
 from pwclonet_pylidarslam_torch.slam import backend, drift_injection, loop_closure  # noqa: E402
 from pwclonet_pylidarslam_torch.slam import pipeline, runner as runner_mod  # noqa: E402
 from pwclonet_pylidarslam_torch.train import state as tstate  # noqa: E402
+from pwclonet_pylidarslam_torch import parallel as par  # noqa: E402
+from pwclonet_pylidarslam_torch.core import optimization as opt  # noqa: E402
+from pwclonet_pylidarslam_torch.models import layers  # noqa: E402
+from pwclonet_pylidarslam_torch.parallel.mesh import all_gather_rows, mesh_axis  # noqa: E402
+from pwclonet_pylidarslam_torch.parallel.scaling import (  # noqa: E402
+    ScalingConfig,
+    measure_scaling,
+    random_batch,
+)
+from pwclonet_pylidarslam_torch.slam import local_map as lm  # noqa: E402
 from pwclonet_pylidarslam_torch.train.fast_lane import run_fast_lane_recipe  # noqa: E402
 from pwclonet_pylidarslam_torch.train.losses import pwclonet_loss  # noqa: E402
 from pwclonet_pylidarslam_torch.train import posenet_state as pn_state  # noqa: E402
@@ -3455,6 +3486,245 @@ def batched_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the parallel layer on torch.distributed (NCCL, world size 1)
+# ---------------------------------------------------------------------------
+
+# The card's machine has one H100, so the layer runs as one rank of a NCCL
+# group on an in-memory store; every sharded function must then give its
+# unsharded counterpart's result to the bit (an all-reduce over one rank is
+# the identity). Its split of the work over ranks is held on the CPU with
+# gloo at world sizes 1 and 2 (tests/test_torch_parallel.py).
+PARALLEL_FRAMES = 8  # one chunk of the batched drive over phase 13's 11 worlds
+PARALLEL_TRAIN_STEPS = 2
+PARALLEL_TRAIN_BATCH = 8
+# tests/test_parallel.py:28-68: loss rtol, the parameters' 99.9th percentile
+# and largest differences after a step, against train_step on the whole batch
+PARALLEL_LOSS_RTOL, PARALLEL_Q999, PARALLEL_MAX = 1e-4, 1e-4, 1e-2
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def parallel_icp_case(mesh, frames: np.ndarray) -> dict:
+    """One 8192-point point-to-plane alignment from a KITTI-profile frame:
+    the frame's returns as the target with seeded unit normals, the source
+    that target moved by the inverse of a small SE(3)."""
+    rng = np.random.default_rng(0)
+    target = torch.from_numpy(frames[0, 0]).cuda()[None]
+    normals = torch.from_numpy(rng.normal(size=target.shape[1:]).astype(np.float32)).cuda()[None]
+    normals = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
+    true = se3.exp(torch.tensor([[0.05, -0.03, 0.02, 0.01, -0.02, 0.015]], device="cuda"))
+    source = se3.transform(se3.inverse(true), target)
+    mask = (torch.linalg.norm(target, dim=-1) > 0).float()
+    ref = opt.solve_point_to_plane(source, target, normals, mask=mask)
+    got = par.solve_point_to_plane_sharded(source, target, normals, mesh, mask=mask)
+    return {"points": target.shape[1], "equal": _equal(ref, got),
+            "true_pose_gap": float((got.pose - true).abs().max()),
+            "iterations": int(got.num_iters[0])}
+
+
+def parallel_map_case(mesh, frames: np.ndarray) -> dict:
+    """The voxel table of ``ICPConfig()`` (2^14 rows of 64, octant cells of
+    2 x 1.5 m) over a KITTI-profile frame's 8192 points, and the nearest
+    neighbours of the next frame's 8192 within the 1.5 m reach."""
+    cfg = icp.ICPConfig(num_points=8192)
+    pts = torch.from_numpy(frames[0, 0]).cuda()
+    nrm = torch.nn.functional.normalize(
+        torch.from_numpy(np.random.default_rng(1).normal(size=pts.shape).astype(np.float32)),
+        dim=-1).cuda()
+    valid = (torch.linalg.norm(pts, dim=-1) > 0).float()
+    query = torch.from_numpy(frames[0, 1]).cuda()
+    cell = 2.0 * cfg.voxel_size
+    kw = dict(table_size=cfg.voxel_table_size, bucket_cap=cfg.voxel_bucket_cap)
+    ref = lm.build_voxel_table(pts, nrm, valid, cell, **kw)
+    table = par.build_voxel_table_sharded(pts, nrm, valid, cell, mesh, **kw)
+    nn_ref = lm.voxel_nn(ref, query, cfg.voxel_size, cfg.voxel_size, neighborhood=8)
+    nn = par.voxel_nn_sharded(table, query, cfg.voxel_size, cfg.voxel_size, mesh,
+                              neighborhood=8)
+    return {"table_equal": _equal(ref, par.gather_voxel_table(table, mesh)),
+            "nn_equal": _equal(nn_ref, nn), "queries": query.shape[0],
+            "matched": int(nn[2].sum())}
+
+
+def parallel_backend_case(mesh) -> dict:
+    """``optimize_sharded`` on phase 8's 200-node circle (float32, the
+    scatter-add kernel's type; 10 Gauss-Newton iterations), launches
+    counted, against ``optimize``."""
+    graph = circle_graph(capacity=(256, 512, 8)).to_device(torch.float32)
+    cfg = backend.PGOConfig(max_iterations=10)  # tests/test_parallel.py's
+    ref = backend.optimize(graph, cfg)
+    stats = backend.PGOStats()
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = par.optimize_sharded(graph, mesh, cfg, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    expected = sum(2 + cg_launches(ran, cfg) for ran in stats.cg_iterations)
+    check(launches["scatter_add"] == expected and sum(launches.values()) == expected,
+          f"optimize_sharded launched the scatter-add kernel {launches['scatter_add']} times "
+          f"({expected} from its {stats.gn_iterations} GN iterations) and no other kernel")
+    return {"equal": torch.equal(ref.poses, got.poses), "launches": launches,
+            "gn_iterations": stats.gn_iterations, "cg_iterations": stats.cg_iterations,
+            "seconds": seconds}
+
+
+def parallel_batched_case(mesh, scans: np.ndarray) -> dict:
+    """``BatchedICPOdometry(mesh=...)`` over one chunk of ``PARALLEL_FRAMES``
+    frames of the 11 worlds, projective, against ``mesh=None``."""
+    cfg = BATCHED_CONFIGS["projective"]
+    chunk = np.ascontiguousarray(scans[:, :PARALLEL_FRAMES])
+    poses = {}
+    for label, m in (("none", None), ("mesh", mesh)):
+        odo = icp.BatchedICPOdometry(cfg, device="cuda", mesh=m)
+        odo.init(chunk.shape[0])
+        t0 = time.perf_counter()
+        poses[label] = odo.process_chunk(chunk)
+        poses[f"{label}_s"] = time.perf_counter() - t0
+    return {"sequences": chunk.shape[0], "frames": PARALLEL_FRAMES,
+            "equal": bool(np.array_equal(poses["none"], poses["mesh"])),
+            "seconds_mesh_none": poses["none_s"], "seconds_mesh": poses["mesh_s"]}
+
+
+def _timed_step(step) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def parallel_collective_costs(mesh, state, step, batch) -> dict:
+    """What the data-parallel step's collectives cost: the BatchNorm calls of
+    one step (each an all-gather of its moments, and an all-reduce of their
+    gradient in the backward), and the host ms of one all-gather and one
+    all-reduce of such a size on the mesh's group, each over 200 calls."""
+    calls, moments = [], layers.batch_moments
+
+    def counted(rows, shard):
+        calls.append(rows.shape)
+        return moments(rows, shard)
+
+    layers.batch_moments = counted
+    try:
+        step(state, batch)
+    finally:
+        layers.batch_moments = moments
+    ax = mesh_axis(mesh)
+    x = torch.ones((2, 64), device="cuda")
+    out = {"batchnorm_calls_a_step": len(calls)}
+    for name, fn in (("all_gather", lambda: all_gather_rows(x, ax)),
+                     ("all_reduce", lambda: dist.all_reduce(x, group=ax.group))):
+        fn()
+        out[f"{name}_ms"] = _timed_step(lambda: [fn() for _ in range(200)]) / 200
+    return out
+
+
+def parallel_train_case(mesh) -> dict:
+    """``make_parallel_train_step`` at full width (the default
+    ``PWCLONetConfig``, 8192 points, batch 8) for two steps from one seeded
+    state, launches counted, against ``train_step`` from the same state."""
+    cfg = tstate.TrainConfig(model=PWCLONetConfig())
+    batch = random_batch(PARALLEL_TRAIN_BATCH, cfg.model.num_points, seed=1,
+                        device=torch.device("cuda"))
+    states = {k: tstate.create_train_state(cfg, seed=0, device="cuda") for k in ("single", "dp")}
+    par.replicate_state(states["dp"], mesh)
+    step = par.make_parallel_train_step(cfg, mesh)
+    runs = {"dp": lambda: logs["dp"].append(step(states["dp"], batch)),
+            "single": lambda: logs["single"].append(
+                tstate.train_step(cfg, states["single"], batch))}
+    logs, ms, launches = {"dp": [], "single": []}, {"dp": [], "single": []}, {}
+    for label in ("dp", "single"):
+        _cuda.reset_launch_counts()
+        for _ in range(PARALLEL_TRAIN_STEPS):
+            ms[label].append(_timed_step(runs[label]))
+        launches[label] = _cuda.launch_counts()
+    for label, counts in launches.items():
+        want = {k: n * PARALLEL_TRAIN_STEPS for k, n in LAUNCHES_PER_TRAIN_STEP.items()}
+        check(counts == want, f"{label} train steps launched {counts}, {PARALLEL_TRAIN_STEPS} x "
+                              f"a step's {LAUNCHES_PER_TRAIN_STEP}")
+    out = {"ms_a_step": ms, "launches": launches["dp"], "steps": []}
+    for k in range(PARALLEL_TRAIN_STEPS):
+        loss = [float(logs[label][k]["loss"]) for label in ("dp", "single")]
+        out["steps"].append({"loss": loss})
+    params = {label: torch.cat([p.detach().reshape(-1) for p in s.model.parameters()])
+              for label, s in states.items()}
+    diffs = (params["dp"] - params["single"]).abs()
+    out["param_diff_q999"] = float(torch.quantile(diffs, 0.999))
+    out["param_diff_max"] = float(diffs.max())
+    out["bit_equal"] = bool(torch.equal(params["dp"], params["single"]) and all(
+        torch.equal(a, b) for a, b in zip(states["dp"].model.buffers(),
+                                          states["single"].model.buffers())))
+    for k, s in enumerate(out["steps"]):
+        check(abs(s["loss"][0] - s["loss"][1]) <= PARALLEL_LOSS_RTOL * abs(s["loss"][1]),
+              f"data-parallel step {k + 1}: loss {s['loss'][0]:.9g} against train_step's "
+              f"{s['loss'][1]:.9g} (rtol {PARALLEL_LOSS_RTOL})")
+    check(out["param_diff_q999"] < PARALLEL_Q999 and out["param_diff_max"] < PARALLEL_MAX,
+          f"parameters after {PARALLEL_TRAIN_STEPS} steps: 99.9th percentile of the differences "
+          f"{out['param_diff_q999']:.3g} < {PARALLEL_Q999}, largest {out['param_diff_max']:.3g} "
+          f"< {PARALLEL_MAX}")
+    # then, on the states the check is done with: where the time goes
+    out["collectives"] = parallel_collective_costs(mesh, states["dp"], step, batch)
+    for label in ("dp", "single"):
+        prof, events = profile_device_events(runs[label])
+        summary = summarize_device_events(events)
+        out[f"profile_{label}"] = {k: summary[k] for k in ("device_ms", "span_ms", "idle_share",
+                                                           "device_launches", "top_kernels")}
+        # the host's side: the ops that took the most of its own time
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
+        out[f"profile_{label}"]["host_top_ops"] = [
+            {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3, "calls": e.count}
+            for e in ops]
+    return out
+
+
+def parallel_phase(scans: Optional[np.ndarray] = None) -> dict:
+    """Phase 14 (runs last: it sets up, then destroys, a NCCL group of this
+    process alone)."""
+    t0 = time.perf_counter()
+    if scans is None:
+        log(f"phase 14: casting {BATCHED_SEQUENCES} KITTI-profile worlds of "
+            f"{BATCHED_FRAMES} frames")
+        scans, _ = batched_worlds()
+    out = {"worlds_s": time.perf_counter() - t0}
+    par.initialize(device="cuda")
+    try:
+        mesh = par.make_mesh(1, 1)
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and mesh.shape == (1, 1), "a NCCL group of one rank and its 1 x 1 mesh")
+        try:
+            par.make_mesh(2, 1)
+            refused = False
+        except ValueError as e:
+            refused = "devices" in str(e)
+        check(refused, "make_mesh(2, 1) raises: one rank, one device")
+        out["icp"] = parallel_icp_case(mesh, scans)
+        check(out["icp"]["equal"] and out["icp"]["true_pose_gap"] < 1e-4,
+              f"solve_point_to_plane_sharded torch.equal to solve_point_to_plane at 8192 points "
+              f"(true pose within {out['icp']['true_pose_gap']:.3g})")
+        out["voxel_map"] = parallel_map_case(mesh, scans)
+        check(out["voxel_map"]["table_equal"] and out["voxel_map"]["nn_equal"],
+              f"build_voxel_table_sharded / voxel_nn_sharded torch.equal to the unsharded "
+              f"functions ({out['voxel_map']['matched']} of 8192 queries matched)")
+        out["backend"] = parallel_backend_case(mesh)
+        check(out["backend"]["equal"], "optimize_sharded torch.equal to optimize, 200-node circle")
+        out["batched"] = parallel_batched_case(mesh, scans)
+        check(out["batched"]["equal"], "BatchedICPOdometry(mesh=make_mesh(1, 1)) equal to "
+                                       "mesh=None over 11 worlds x 8 frames")
+        out["train"] = parallel_train_case(mesh)
+        log(f"train step ms, data-parallel {out['train']['ms_a_step']['dp']}, "
+            f"single {out['train']['ms_a_step']['single']}")
+        out["scaling"] = measure_scaling(ScalingConfig(num_points=8192, batch_per_device=8))
+        print(json.dumps(out["scaling"][0]))
+    finally:
+        par.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3489,6 +3759,11 @@ def main() -> int:
     parser.add_argument("--batched", action="store_true",
                         help="run phase 13 alone (batched multi-sequence ICP and the profiler "
                              "hook, no kernel build); prints its metrics and no ok line")
+    parser.add_argument("--parallel", action="store_true",
+                        help="build, then phase 14 alone (the parallel layer: a NCCL group of "
+                             "one rank, every sharded function against its unsharded "
+                             "counterpart, the data-parallel train step at full width, the "
+                             "scaling harness); prints its metrics and no ok line")
     parser.add_argument("--slam", action="store_true",
                         help="build, the SLAM kernel cases of phase 2, then phase 8 alone with a "
                              "checkpoint of seeded random weights; prints its metrics and no ok "
@@ -3535,6 +3810,12 @@ def main() -> int:
         cls_seg = cls_seg_phase()
         print(card_line())
         print(json.dumps({"cls_seg": cls_seg}))
+        return 0
+    if args.parallel:
+        log("phase 14 alone: the parallel layer on torch.distributed, NCCL, world size 1")
+        parallel = parallel_phase()
+        print(card_line())
+        print(json.dumps({"parallel": parallel}))
         return 0
     if args.world:
         log("phase 12 alone: the KITTI-profile world, PWCLO-Net trained and tested on it")
@@ -3640,6 +3921,9 @@ def main() -> int:
     log("phase 13: batched multi-sequence ICP odometry at full width, projective and voxel")
     batched = batched_phase()
 
+    log("phase 14: the parallel layer on torch.distributed, NCCL, world size 1")
+    parallel = parallel_phase()
+
     kernels = []
     slam_icp = slam["slam-icp-loop"]["launches"]
     slam_deep = slam["slam-pwclonet-loop"]["launches"]
@@ -3663,6 +3947,8 @@ def main() -> int:
                         "train_step": cls_seg[label]["launches_train_step"][kernel]}
                 for label in CLS_SEG_CELLS},
             "synthetic_world": world_lines.get(name, {}).get("synthetic_world"),
+            "launches_parallel_train_path": parallel["train"]["launches"][kernel],
+            "launches_parallel_backend_path": parallel["backend"]["launches"][kernel],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
@@ -3684,7 +3970,7 @@ def main() -> int:
         "train": {**train, **train_times}, "learning_recipe": learning,
         "profile": profiles, "icp": icp_metrics, "slam": slam, "ct_icp": ct_metrics,
         "posenet": pn_metrics, "cls_seg": {k: v for k, v in cls_seg.items() if k != "cases"},
-        "world": world, "batched_icp": batched,
+        "world": world, "batched_icp": batched, "parallel": parallel,
         "total_s": time.perf_counter() - t_start,
     }
     print(card_line())
@@ -3722,6 +4008,8 @@ def main() -> int:
                for key in ("ms_per_batched_step", "frames_per_s_summed", "serial_frames_per_s")]
     finite += [batched[mode][p][key] for mode in BATCHED_CONFIGS for p in ("profile_s1", "profile_s11")
                for key in ("device_ms_per_step", "idle_share")]
+    finite += parallel["train"]["ms_a_step"]["dp"] + parallel["train"]["ms_a_step"]["single"]
+    finite += [parallel["scaling"][0][key] for key in ("ms_per_step", "pairs_per_s")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
     check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
           "six kernels and the masked kNN, each launched on its main path")

@@ -210,6 +210,7 @@ def gauss_newton_se3(
     eps: float = 1e-4,
     damping: float = 1e-9,
     match_distances: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> SE3GNResult:
     """Gauss-Newton on SE(3) with multiplicative updates.
 
@@ -217,6 +218,13 @@ def gauss_newton_se3(
     taken against a left perturbation ``exp(δ)·pose`` at ``δ = 0``. Each
     iteration solves the damped 6×6 normal equations and sets
     ``pose ← exp(δ)·pose``; a converged problem takes no further step.
+
+    ``reduce``: where the N axis is split over processes, the sum over them
+    (an all-reduce, ``parallel/sharded_icp.py``). It is applied to H and g,
+    packed as one ``(B, 42)`` tensor, every iteration, and to the final
+    cost, the reference's ``psum_axis`` sites; every rank then solves the
+    same system and reads the same convergence flags. The robust weights
+    stay per point. Without it nothing is reduced.
     """
     pose = init_pose
     converged = torch.zeros(init_pose.shape[0], dtype=torch.bool, device=init_pose.device)
@@ -225,6 +233,9 @@ def gauss_newton_se3(
         res, jac = residual_jac_fn(pose)
         w = robust_weights(res, scheme, sigma, eps, match_distances)
         h, g = normal_equations(jac * w[..., None], res * w)
+        if reduce is not None:
+            hg = reduce(torch.cat([h.flatten(-2), g], dim=-1))
+            h, g = hg[..., :36].unflatten(-1, (6, 6)), hg[..., 36:]
         dx = torch.where(converged[..., None], 0.0, damped_step(h, g, damping))
         pose = se3.exp(dx) @ pose
         converged = converged | (torch.linalg.norm(dx, dim=-1) < norm_stop_criterion)
@@ -235,6 +246,8 @@ def gauss_newton_se3(
     res, _ = residual_jac_fn(pose)
     w = robust_weights(res, scheme, sigma, eps, match_distances)
     cost = torch.sum((res * w) ** 2, dim=-1)
+    if reduce is not None:
+        cost = reduce(cost)
     iters = torch.full((init_pose.shape[0],), it, dtype=torch.int32, device=init_pose.device)
     return SE3GNResult(pose=pose, cost=cost, num_iters=iters, converged=converged)
 

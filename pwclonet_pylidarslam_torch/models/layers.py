@@ -13,16 +13,104 @@ In eval mode ``PointMLP`` can fold each BatchNorm into its matmul
 with the batch statistics and leaves the new running statistics *pending*:
 :func:`commit_batch_stats` writes them into the buffers (or keeps the old
 ones where a step is skipped), :func:`discard_batch_stats` drops them.
+
+Data-parallel training (``parallel/data_parallel.py``) splits a batch over
+ranks in equal contiguous blocks. Under :func:`sharded_batch` each rank's
+train-mode ``PointMLP`` takes the moments of the whole batch
+(:func:`batch_moments`, differentiable), and :func:`dropout` draws its masks
+for the whole batch and keeps the rank's rows, so that every rank's
+generator advances as one process's does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import contextlib
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pwclonet_pylidarslam_torch import ops
+
+
+class BatchShard(NamedTuple):
+    """This rank's block of a batch split over the ``size`` ranks of
+    ``group`` in equal contiguous blocks, in rank order."""
+
+    group: object  # torch.distributed ProcessGroup
+    rank: int
+    size: int
+
+    def rows(self, local: int) -> slice:
+        """This rank's rows of the whole batch, ``local`` rows a rank."""
+        return slice(self.rank * local, (self.rank + 1) * local)
+
+
+# ``all_gather_into_tensor`` under its newer name, where torch has it: the
+# ranks' tensors concatenated on axis 0
+all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+class _WholeBatchMoments(torch.autograd.Function):
+    """``(mean, var)`` of the whole batch from each rank's ``(mean_r,
+    var_r)`` of as many rows, ``(C,)`` each: one all-gather, then Chan's
+    formula for equal counts, the same on every rank: ``mean`` the average
+    of the ``mean_r``, ``var`` the average of ``var_r + (mean_r − mean)²``.
+    The backward is one all-reduce of the output gradients (the sum over
+    the ranks' losses) and ``∂mean/∂mean_r = 1/n``, ``∂var/∂var_r = 1/n``,
+    ``∂var/∂mean_r = 2 (mean_r − mean) / n``. On one rank both directions
+    pass the values through unchanged, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, mean: torch.Tensor, var: torch.Tensor, shard: "BatchShard"):
+        local = torch.stack([mean, var])
+        ranks = local.new_empty((shard.size * 2,) + tuple(mean.shape))
+        all_gather_single(ranks, local, group=shard.group)
+        means, variances = ranks.unflatten(0, (shard.size, 2)).unbind(1)
+        whole_mean = means.sum(0) / shard.size
+        whole_var = (variances + (means - whole_mean) ** 2).sum(0) / shard.size
+        ctx.shard = shard
+        ctx.save_for_backward(mean - whole_mean)
+        return whole_mean, whole_var
+
+    @staticmethod
+    def backward(ctx, grad_mean: torch.Tensor, grad_var: torch.Tensor):
+        (offset,) = ctx.saved_tensors
+        n = ctx.shard.size
+        grads = torch.stack([grad_mean, grad_var])
+        dist.all_reduce(grads, group=ctx.shard.group)
+        return torch.addcmul(grads[0] / n, grads[1], offset, value=2.0 / n), grads[1] / n, None
+
+
+def batch_moments(rows: torch.Tensor, shard: Optional[BatchShard] = None):
+    """``(var, mean)`` (biased) over axis 0 of ``rows (M, C)``. With
+    ``shard``, of the whole batch whose rows this rank holds, every rank
+    holding M: each rank's ``torch.var_mean``, combined over the ranks
+    (:class:`_WholeBatchMoments`) so that no ``E[x²] − E[x]²`` cancels. On
+    one rank the result is ``var_mean``'s, bit for bit."""
+    var, mean = torch.var_mean(rows, dim=0, unbiased=False)
+    if shard is None:
+        return var, mean
+    mean, var = _WholeBatchMoments.apply(mean, var, shard)
+    return var, mean
+
+
+@contextlib.contextmanager
+def sharded_batch(module: nn.Module, shard: BatchShard):
+    """Within the block, the train-mode forwards of ``module`` run on this
+    rank's block of a batch split as ``shard`` says: every submodule with a
+    ``batch_shard`` attribute (``PointMLP``, ``PoseCalculator``) takes the
+    BatchNorm moments and dropout masks of the whole batch. After it, they
+    run on their own batch again."""
+    held = [m for m in module.modules() if hasattr(m, "batch_shard")]
+    for m in held:
+        m.batch_shard = shard
+    try:
+        yield
+    finally:
+        for m in held:
+            m.batch_shard = None
 
 
 class PointMLP(nn.Module):
@@ -45,7 +133,11 @@ class PointMLP(nn.Module):
     With ``fused=True`` the MLP + max-pool block of a 4-d input runs as one
     float32 kernel on the BN-folded weights, whatever ``dtype`` is; the fused
     kernel has no backward, so ``train=True`` takes the unfused graph.
+    Under :func:`sharded_batch` the train-mode moments are those of the
+    whole batch (:func:`batch_moments`).
     """
+
+    batch_shard: Optional[BatchShard] = None
 
     def __init__(self, in_features: int, features: Sequence[int], eps: float = 1e-5,
                  generator: Optional[torch.Generator] = None,
@@ -98,7 +190,7 @@ class PointMLP(nn.Module):
             else:
                 h = torch.matmul(x, kernel)
             if train:
-                var, mean = torch.var_mean(h.reshape(-1, h.shape[-1]), dim=0, unbiased=False)
+                var, mean = batch_moments(h.reshape(-1, h.shape[-1]), self.batch_shard)
                 for name, batch in ((f"mean_{i}", mean), (f"var_{i}", var)):
                     running = self.pending.get(name, getattr(self, name))
                     self.pending[name] = (1.0 - bn_momentum) * running + bn_momentum * batch.detach()
@@ -151,13 +243,22 @@ def discard_batch_stats(module: nn.Module) -> None:
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard: Optional[BatchShard] = None) -> torch.Tensor:
     """Dropout whose mask is drawn from ``generator`` (on ``x``'s device; the
     default generator when None), kept entries scaled by ``1 / (1 - rate)``;
-    the identity in eval mode or at rate 0."""
+    the identity in eval mode or at rate 0. With ``shard``, ``x`` is this
+    rank's block of the batch: the mask is drawn for the whole batch and the
+    block's rows are kept."""
     if not train or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        b = x.shape[0]
+        whole = torch.rand((b * shard.size,) + tuple(x.shape[1:]), generator=generator,
+                           device=x.device)
+        keep = whole[shard.rows(b)] >= rate
     return x * keep / (1.0 - rate)
 
 

@@ -37,6 +37,7 @@ from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.device import resolve_device
 from pwclonet_pylidarslam_torch.models.costvolume import CostVolume
 from pwclonet_pylidarslam_torch.models.layers import (
+    BatchShard,
     LinearHead,
     PointMLP,
     discard_batch_stats,
@@ -70,8 +71,11 @@ class PoseCalculator(nn.Module):
     ``hidden``-wide projection. In train mode the two masks are drawn one
     after the other from ``generator`` (on the tensor's device; the default
     generator when None), kept entries scaled by ``1 / (1 - dropout_rate)``;
-    in eval mode dropout is the identity.
+    in eval mode dropout is the identity. Under ``layers.sharded_batch``
+    the masks are drawn for the whole batch and this rank keeps its rows.
     """
+
+    batch_shard: Optional[BatchShard] = None
 
     def __init__(self, in_features: int, hidden: int = 256,
                  generator: Optional[torch.Generator] = None, dropout_rate: float = 0.5):
@@ -83,7 +87,7 @@ class PoseCalculator(nn.Module):
 
     def _dropout(self, x: torch.Tensor, train: bool,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-        return dropout(x, self.dropout_rate, train, generator)
+        return dropout(x, self.dropout_rate, train, generator, self.batch_shard)
 
     def forward(self, features, mask, train: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -42,7 +42,7 @@ cuDNN and restores the switches after, as the reference runs every einsum at
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Union
+from typing import Callable, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -263,15 +263,30 @@ class PGOStats(StepStats):
 
 class _Accumulator:
     """Per-node sums of the edge_i, edge_j and prior terms, in that order,
-    as one row scatter-add: ``(E, C), (E, C), (P, C) → (V, C)``."""
+    as one row scatter-add: ``(E, C), (E, C), (P, C) → (V, C)``; then
+    ``reduce`` (the sum over the processes that hold the other edges,
+    ``parallel/sharded_backend.py``) where given."""
 
-    def __init__(self, graph: PoseGraph):
+    def __init__(self, graph: PoseGraph,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.n = graph.poses.shape[0]
         self.idx = torch.cat([graph.edge_i, graph.edge_j, graph.prior_node]).to(torch.int32)[None]
+        self.reduce = reduce
 
     def __call__(self, yi: torch.Tensor, yj: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
         upd = torch.cat([yi, yj, yp])
-        return scatter_add_rows(upd.reshape(1, self.idx.shape[1], -1), self.idx, self.n)[0]
+        out = scatter_add_rows(upd.reshape(1, self.idx.shape[1], -1), self.idx, self.n)[0]
+        return out if self.reduce is None else self.reduce(out)
+
+
+def _part(graph: PoseGraph, edges: slice, priors: slice) -> PoseGraph:
+    """The graph's edges ``edges`` and priors ``priors``, its nodes at full
+    capacity."""
+    return graph._replace(
+        edge_i=graph.edge_i[edges], edge_j=graph.edge_j[edges], edge_meas=graph.edge_meas[edges],
+        edge_info=graph.edge_info[edges], edge_active=graph.edge_active[edges],
+        prior_node=graph.prior_node[priors], prior_meas=graph.prior_meas[priors],
+        prior_info=graph.prior_info[priors], prior_active=graph.prior_active[priors])
 
 
 def _active_part(graph: PoseGraph, e: int, p: int) -> PoseGraph:
@@ -282,11 +297,7 @@ def _active_part(graph: PoseGraph, e: int, p: int) -> PoseGraph:
     gives over the whole capacity. Over the whole capacity every padded slot
     would point at node 0, whose terms the scatter-add kernel adds in one
     thread: ~33,000 zeros every CG iteration at the default capacity."""
-    return graph._replace(
-        edge_i=graph.edge_i[:e], edge_j=graph.edge_j[:e], edge_meas=graph.edge_meas[:e],
-        edge_info=graph.edge_info[:e], edge_active=graph.edge_active[:e],
-        prior_node=graph.prior_node[:p], prior_meas=graph.prior_meas[:p],
-        prior_info=graph.prior_info[:p], prior_active=graph.prior_active[:p])
+    return _part(graph, slice(0, e), slice(0, p))
 
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -380,6 +391,17 @@ def optimize(graph: PoseGraph, config: PGOConfig = PGOConfig(),
     drops to ``step_tolerance``. ``stats`` (a :class:`PGOStats`) counts
     iterations and host reads. On the card the graph must be float32 (the
     scatter-add kernel's type)."""
+    return _optimize(graph, config, stats, _active_part)
+
+
+def _optimize(graph: PoseGraph, config: PGOConfig, stats: Optional[PGOStats],
+              part: Callable[[PoseGraph, int, int], PoseGraph],
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> PoseGraph:
+    """:func:`optimize` over ``part(graph, e, p)`` of the graph with ``e``
+    edges and ``p`` priors, its per-node sums then ``reduce``d where given.
+    Every host read is of a value computed from reduced sums, so processes
+    that hold the other parts read the same values and leave their loops
+    together."""
     stats = stats if stats is not None else PGOStats()
     with full_fp32_products():
         v = graph.poses.shape[0]
@@ -387,8 +409,8 @@ def optimize(graph: PoseGraph, config: PGOConfig = PGOConfig(),
         if config.anchor_first:
             free = free * (torch.arange(v, device=free.device) != 0)
         e, p = stats.read(torch.stack([graph.num_edges, graph.num_priors]))
-        active = _active_part(graph, e, p)
-        acc = _Accumulator(active)
+        active = part(graph, e, p)
+        acc = _Accumulator(active, reduce)
         poses = graph.poses
         it = 0
         while it < config.max_iterations:

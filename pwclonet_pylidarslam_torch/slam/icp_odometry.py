@@ -758,24 +758,34 @@ class BatchedICPOdometry:
     under ``vmap`` (its refresh would gather for every sequence anyway).
     ``iterations`` holds, a frame, the Gauss-Newton iterations of each
     sequence; ``host_reads`` the host reads of each batched step.
+
+    ``mesh`` (``parallel.make_mesh``): the sequences split over its ``data``
+    axis. Every rank calls ``init`` and ``process_chunk`` with all S
+    sequences (S must divide by the axis), steps its contiguous block of
+    S/n, and gets all S chains back by one all-gather a chunk;
+    ``iterations`` and ``host_reads`` are then those of its own block.
     """
 
     def __init__(self, config: Optional[ICPConfig] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the sequence axis sharded over devices is parallel/, ROADMAP Queue A 9")
         config = config or ICPConfig()
         if config.association == "voxel" and config.voxel_candidate_cache:
             config = dataclasses.replace(config, voxel_candidate_cache=False)
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.states: Optional[OdometryState] = None
         self.iterations: List[List[int]] = []
         self.host_reads: List[int] = []
         self._pose_chunks: list = []
+        self._rows = slice(None)
 
     def init(self, n_sequences: int):
+        if self.mesh is not None:
+            from pwclonet_pylidarslam_torch.parallel.mesh import axis_rows, mesh_axis
+
+            self._rows = axis_rows(n_sequences, mesh_axis(self.mesh), "n_sequences")
+            n_sequences = self._rows.stop - self._rows.start
         self.states = init_states(self.config, n_sequences, device=self.device)
         self.iterations, self.host_reads, self._pose_chunks = [], [], []
 
@@ -783,6 +793,7 @@ class BatchedICPOdometry:
         """``scans (S, T, N, 3)`` → absolute poses ``(S, T, 4, 4)`` (numpy):
         one upload, T batched steps, one fetch."""
         assert self.states is not None, "init() first"
+        scans = scans[self._rows]
         q = torch.from_numpy(np.ascontiguousarray(quantize_scans(self.config, scans)))
         frames = dequantize_scans(self.config, q.to(self.device)).transpose(0, 1).contiguous()
         poses = []
@@ -793,7 +804,12 @@ class BatchedICPOdometry:
             poses.append(result.pose)
             self.iterations.append(stats.sequence_iterations)
             self.host_reads.append(stats.host_reads + (t == 0))  # + the fetch
-        out = torch.stack(poses, dim=1).cpu().numpy()
+        out = torch.stack(poses, dim=1)
+        if self.mesh is not None:
+            from pwclonet_pylidarslam_torch.parallel.mesh import all_gather_rows, mesh_axis
+
+            out = all_gather_rows(out, mesh_axis(self.mesh)).flatten(0, 1)
+        out = out.cpu().numpy()
         self._pose_chunks.append(out)
         return out
 

@@ -243,6 +243,16 @@ def train_step(config: TrainConfig, state: TrainState, batch: Mapping) -> Dict[s
     tensors on the device: the loss terms, ``grad_norm`` and
     ``skipped_nonfinite``."""
     loss, log, grads = loss_and_grads(config, state, batch)
+    return apply_grads(config, state, loss, log, grads)
+
+
+def apply_grads(config: TrainConfig, state: TrainState, loss: torch.Tensor,
+                log: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """The rest of :func:`train_step` after :func:`loss_and_grads`: one Adam
+    update from ``grads`` and the pending statistics committed, both only
+    where ``loss`` is finite, and the step counted. Returns ``log`` with
+    ``grad_norm`` and ``skipped_nonfinite``."""
     finite = torch.isfinite(loss)
     flat_grad = state.optimizer.update(list(grads.values()), apply=finite)
     commit_batch_stats(state.model, keep=finite)

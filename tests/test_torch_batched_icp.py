@@ -18,11 +18,15 @@ Tolerances, and why:
   those of its slowest sequence: they do not grow with S.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
+import torch.distributed as dist
 
+from pwclonet_pylidarslam_torch import parallel as tpar
 from pwclonet_pylidarslam_torch.data.synthetic import SyntheticSequenceConfig, generate_sequence
 from pwclonet_pylidarslam_torch.slam import BatchedICPOdometry
 from pwclonet_pylidarslam_torch.slam import icp_odometry as ticp
@@ -142,8 +146,24 @@ def test_config_and_refusals():
     assert not odo.config.voxel_candidate_cache
     assert BatchedICPOdometry(ticp.ICPConfig(num_points=256), device="cpu").config == \
         ticp.ICPConfig(num_points=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-        BatchedICPOdometry(voxel, device="cpu", mesh=object())
+    # the sequence axis split over a mesh: a data axis of two ranks refuses
+    # an S that does not divide (before any collective), and one rank's mesh
+    # takes every S
+    class TwoRanks:
+        def __getitem__(self, axis):
+            return SimpleNamespace(get_group=lambda: None, get_local_rank=lambda: 0,
+                                   size=lambda: 2)
+
+    with pytest.raises(ValueError, match="divisible"):
+        BatchedICPOdometry(voxel, device="cpu", mesh=TwoRanks()).init(3)
+    started = not dist.is_initialized()
+    try:
+        odo = BatchedICPOdometry(voxel, device="cpu", mesh=tpar.make_mesh(device="cpu"))
+        odo.init(3)
+        assert odo.states.pose.shape[0] == 3
+    finally:
+        if started:
+            tpar.shutdown()
     state = ticp.init_states(voxel, 2, device="cpu")
     with pytest.raises(ValueError, match="one sequence"):
         ticp.process_frame_batched(voxel, state, torch.zeros(2, 256, 3))

@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pwclonet_pylidarslam_tp
 SOURCES = sorted((REPO / "pwclonet_pylidarslam_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "train_net_torch.py", REPO / "run_slam_torch.py",
     REPO / "replay_slam_torch.py", REPO / "tools" / "time_point_kernels.py",
-    REPO / "tools" / "cast_check.py", REPO / "tools" / "batched_step_nudges.py"]
+    REPO / "tools" / "cast_check.py", REPO / "tools" / "batched_step_nudges.py",
+    REPO / "tests" / "_torch_parallel_child.py"]
 
 
 def _imported_modules(path: Path):
