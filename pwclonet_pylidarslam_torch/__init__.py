@@ -9,7 +9,7 @@ int32 at the public functions, as in the reference.
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 On CUDA tensors the point ops launch the hand-written kernels of ``csrc/``;
 on CPU tensors they run the plain PyTorch versions the kernels are held to.
-PWCLO-Net odometry and training are ported so far (see ROADMAP.md).
+Every module of the JAX package has its counterpart here (see ROADMAP.md).
 """
 
 from pwclonet_pylidarslam_torch.device import resolve_device

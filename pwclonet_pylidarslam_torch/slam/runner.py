@@ -4,8 +4,11 @@ PyTorch counterpart of ``pwclonet_pylidarslam_tpu/slam/runner.py``: a loop
 over sequences with failure isolation (a crashing sequence is recorded and
 the run continues), partial pose files every ``save_every_frames`` frames
 with an incremental metric record, full-pipeline snapshots and resume,
-GPS priors from a source's ``gps_poses()``, and ``OdometryResults``
-persistence (poses, ``metrics.yaml``, plots).
+GPS priors from a source's ``gps_poses()``, ``OdometryResults``
+persistence (poses, ``metrics.yaml``, plots), and with ``gallery`` each
+sequence's HTML gallery and player (``evaluation/gallery.py``,
+``evaluation/player.py``; the gallery needs matplotlib: without it the
+sequence is recorded as failed, as in the reference).
 """
 
 from __future__ import annotations
@@ -20,13 +23,10 @@ import numpy as np
 import torch
 
 from pwclonet_pylidarslam_torch.device import resolve_device
+from pwclonet_pylidarslam_torch.evaluation.gallery import write_run_gallery
+from pwclonet_pylidarslam_torch.evaluation.player import write_run_player
 from pwclonet_pylidarslam_torch.evaluation.results import OdometryResults, write_poses_txt
 from pwclonet_pylidarslam_torch.slam.pipeline import SLAM, SLAMConfig
-
-# the reference's per-sequence HTML gallery and player need matplotlib and
-# are not ported yet
-GALLERY_NOT_PORTED = ("gallery=True: evaluation/gallery.py, player.py and viz.py are not "
-                      "ported yet (ROADMAP Queue A 11)")
 
 
 class SequenceSource(Protocol):
@@ -54,7 +54,7 @@ class SLAMRunnerConfig:
     resume: bool = False  # continue from a sequence's last snapshot
     use_gps: bool = False  # each source's gps_poses() as unary priors
     gps_information: Optional[np.ndarray] = None  # (6,6) or None = defaults
-    gallery: bool = False  # not ported: raises NotImplementedError
+    gallery: bool = False  # each sequence's HTML gallery and player
 
 
 class SLAMRunner:
@@ -65,8 +65,6 @@ class SLAMRunner:
     def __init__(self, config: Optional[SLAMRunnerConfig] = None, odometry=None,
                  device: Union[str, torch.device] = "cuda"):
         self.config = config or SLAMRunnerConfig()
-        if self.config.gallery:
-            raise NotImplementedError(GALLERY_NOT_PORTED)
         self.device = resolve_device(device)
         self.results = OdometryResults(self.config.log_dir)
         self.failures: Dict[str, str] = {}
@@ -137,4 +135,24 @@ class SLAMRunner:
         gt = source.ground_truth()
         if gt is not None:
             gt = gt[:n]
-        return self.results.add_sequence(name, predicted, gt, elapsed_seconds=elapsed)
+        md = self.results.add_sequence(name, predicted, gt, elapsed_seconds=elapsed)
+        if self.config.gallery:
+            scans = _LazyScans(source, n)  # only the sampled frames are loaded
+            gallery_dir = os.path.join(self.config.log_dir, f"{name}_gallery")
+            write_run_gallery(gallery_dir, name, scans, predicted, gt, metrics=md,
+                              device=self.device)
+            write_run_player(gallery_dir, name, scans, predicted, gt)
+        return md
+
+
+class _LazyScans:
+    """The first ``n`` scans of a source, each read when it is asked for."""
+
+    def __init__(self, source: SequenceSource, n: int):
+        self.source, self.n = source, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return np.asarray(self.source.scan(i))[:, :3]

@@ -13,15 +13,20 @@ Usage::
     python run_slam_torch.py config=kitti_batched dataset=synthetic \
         sequences=0,1,2 synthetic_frames=32 profile_dir=./prof log_dir=./out
 
+    python run_slam_torch.py config=nclt_voxel root_dir=/data/nclt \
+        sequences=2012-01-08 gallery=true log_dir=./out
+
 Config is plain ``key=value`` overrides (Hydra-CLI style) over
 :class:`RunConfig`, optionally on top of ``config=<preset>`` YAML files from
 ``config/``; the resolved config and git hash go into the run directory.
 Runs on the card (``device=cuda``) unless ``device=cpu`` is given.
 ``batched=true`` advances every sequence together through
 ``BatchedICPOdometry`` (odometry only); ``profile_dir`` records a
-``torch.profiler`` trace of the run there. The options of ``run_slam.py``
-that the port does not run yet raise ``NotImplementedError`` with the
-ROADMAP item that ports them.
+``torch.profiler`` trace of the run there; ``gallery=true`` writes each
+sequence's HTML gallery and player (matplotlib needed). The datasets are
+``run_slam.py``'s: ``synthetic``, ``kitti``, ``kitti360``, ``nclt``, ``ford``,
+``nhcd``, ``rosbag`` (with ``rosbag_topic``), ``urbanloco``, ``ply_dir`` and
+``kitti_carla``, with its sequence names.
 """
 
 from __future__ import annotations
@@ -34,21 +39,19 @@ from typing import List, Optional
 
 import numpy as np
 
-# what run_slam.py offers and the port does not run yet, with its ROADMAP item
-NOT_PORTED = {
-    "dataset": {
-        name: f"dataset={name}: data/other_datasets.py and data/rosbag.py, ROADMAP Queue A 9"
-        for name in ("kitti360", "nclt", "ford", "nhcd", "rosbag", "urbanloco", "ply_dir",
-                     "kitti_carla")
-    },
-}
+from pwclonet_pylidarslam_torch.data import other_datasets as od
+from pwclonet_pylidarslam_torch.data.rosbag import RosbagSequence, UrbanLocoSequence
+
+DATASETS = ("synthetic", "kitti", "kitti360", "nclt", "ford", "nhcd", "rosbag", "urbanloco",
+            "ply_dir", "kitti_carla")
+ODOMETRIES = ("icp", "ct_icp", "ct_icp_rigid", "pwclonet", "posenet")
 
 
 @dataclasses.dataclass
 class RunConfig:
     """``run_slam.py``'s ``RunConfig``, plus ``device``."""
 
-    dataset: str = "synthetic"  # synthetic | kitti (the others: NOT_PORTED)
+    dataset: str = "synthetic"  # one of DATASETS
     root_dir: str = ""
     rosbag_topic: str = "/velodyne_points"
     sequences: str = "0"  # comma-separated
@@ -76,26 +79,18 @@ class RunConfig:
     num_points: int = 8192
     snapshot_every_frames: int = 0  # full-pipeline snapshot cadence (0 = off)
     resume: bool = False  # continue a crashed run from its last snapshot
-    gallery: bool = False  # evaluation/gallery.py: ROADMAP Queue A 11
+    gallery: bool = False  # each sequence's HTML gallery and player (evaluation/gallery.py)
     profile_dir: str = ""  # a torch.profiler trace of the run (utils/timer.py)
     synthetic_frames: int = 60
     synthetic_trajectory: str = "curve"
     device: str = "cuda"  # cuda | cpu
 
 
-def check_ported(config: RunConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for an option
-    of ``run_slam.py`` that the port does not run yet."""
-    for key, table in NOT_PORTED.items():
-        if getattr(config, key) in table:
-            raise NotImplementedError(table[getattr(config, key)])
-    if config.gallery:
-        from pwclonet_pylidarslam_torch.slam.runner import GALLERY_NOT_PORTED
-
-        raise NotImplementedError(GALLERY_NOT_PORTED)
-    if config.dataset not in ("synthetic", "kitti"):
+def check_config(config: RunConfig) -> None:
+    """Exit on an unknown dataset or odometry."""
+    if config.dataset not in DATASETS:
         raise SystemExit(f"unknown dataset {config.dataset!r}")
-    if config.odometry not in ("icp", "ct_icp", "ct_icp_rigid", "pwclonet", "posenet"):
+    if config.odometry not in ODOMETRIES:
         raise SystemExit(f"unknown odometry {config.odometry!r}")
 
 
@@ -116,8 +111,14 @@ class _Source:
         return self._gps
 
 
+def _bag_name(s: str) -> str:
+    return s.rsplit("/", 1)[-1].removesuffix(".bag")
+
+
 def build_sources(config: RunConfig) -> dict:
-    check_ported(config)
+    """The named sequences of ``config.dataset``, named as ``run_slam.py``
+    names them."""
+    check_config(config)
     seqs = [s for s in str(config.sequences).strip("[]").split(",") if s != ""]
     sources = {}
     if config.dataset == "synthetic":
@@ -147,11 +148,43 @@ def build_sources(config: RunConfig) -> dict:
                     fix[:3, 3] += r.normal(scale=config.gps_noise, size=3)
                     gps[t] = fix
             sources[f"synth{int(s):02d}"] = _Source(scans, gt, gps)
-    else:
+    elif config.dataset == "kitti":
         from pwclonet_pylidarslam_torch.data.kitti import KittiSequence
 
         for s in seqs:
             sources[f"{int(s):02d}"] = KittiSequence(config.root_dir, int(s))
+    elif config.dataset == "kitti360":
+        for s in seqs:
+            sources[f"{int(s):02d}"] = od.Kitti360Sequence(config.root_dir, int(s))
+    elif config.dataset == "nclt":
+        for s in seqs:
+            sources[s] = od.NCLTSequence(config.root_dir, s)
+    elif config.dataset == "ford":
+        for s in seqs:
+            sources[s] = od.FordCampusSequence(os.path.join(config.root_dir, s))
+    elif config.dataset == "nhcd":
+        for s in seqs:
+            sources[s] = od.NHCDSequence(config.root_dir, s)
+    elif config.dataset == "rosbag":
+        for s in seqs:  # each "sequence" is a bag path relative to root_dir
+            path = f"{config.root_dir}/{s}" if config.root_dir else s
+            sources[_bag_name(s)] = RosbagSequence(path, config.rosbag_topic,
+                                                   num_points=config.num_points)
+    elif config.dataset == "urbanloco":
+        for s in seqs:
+            path = f"{config.root_dir}/{s}" if config.root_dir else s
+            acq = (UrbanLocoSequence.CALIFORNIA if _bag_name(s).startswith("CA")
+                   else UrbanLocoSequence.HONG_KONG)
+            sources[_bag_name(s)] = UrbanLocoSequence(path, acq, num_points=config.num_points)
+    elif config.dataset == "ply_dir":
+        for s in seqs:  # each "sequence" is a scan dir relative to root_dir
+            scan_dir = os.path.join(config.root_dir, s) if config.root_dir else s
+            poses = os.path.join(os.path.dirname(scan_dir.rstrip("/")), "poses.txt")
+            sources[s.rstrip("/").rsplit("/", 1)[-1]] = od.PLYDirSequence(
+                scan_dir, poses if os.path.exists(poses) else None)
+    else:  # kitti_carla
+        for s in seqs:
+            sources[f"Town{int(s):02d}"] = od.KittiCarlaSequence(config.root_dir, int(s))
     return sources
 
 
@@ -231,7 +264,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     argv = argv if argv is not None else sys.argv[1:]
     config = parse_cli(RunConfig, argv)
-    check_ported(config)
+    check_config(config)
     if config.batched:
         if config.with_loop_closure or config.with_backend or config.resume or config.gps:
             raise SystemExit("batched=true is odometry-only (no loop closure/backend/gps/resume)")
@@ -253,6 +286,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         snapshot_every_frames=config.snapshot_every_frames,
         resume=config.resume,
         use_gps=config.gps,
+        gallery=config.gallery,
     )
     odometry = make_odometry(config, slam_cfg)
     runner = SLAMRunner(runner_cfg, odometry=odometry, device=config.device)

@@ -2,10 +2,12 @@
 data at 1024 points, 6 frames; ICP, CT-ICP elastic and rigid, then PWCLO-Net
 and PoseResNet from checkpoints of the port's trainers), then
 ``replay_slam_torch.py`` on its run directory; ``batched=true``, its
-refusals and ``config=kitti_batched``; ``profile_dir`` in both CLIs. The
-result files are read back with the reference's readers. The options of
-``run_slam.py`` the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP item."""
+refusals and ``config=kitti_batched``; ``profile_dir`` in both CLIs; every
+dataset of ``run_slam.py`` (the presets ``nclt_voxel``, ``nhcd_voxel``,
+``urbanloco_gps`` and ``kitti_carla_ct_icp`` among them) on files written
+under the test's tmp dir (``tools/dataset_files.py``, 5 frames of 1024
+points), ``gallery=true``, and ``train_net_torch.py dataset=kitti360``. The
+result files are read back with the reference's readers."""
 
 import json
 import subprocess
@@ -21,6 +23,7 @@ import run_slam_torch
 import train_net_torch
 from pwclonet_pylidarslam_torch.utils.config import parse_cli
 from pwclonet_pylidarslam_tpu.evaluation.results import read_metrics_yaml, read_poses_txt
+from tools import dataset_files as df
 
 REPO = Path(__file__).resolve().parents[1]
 COMMON = ["dataset=synthetic", "sequences=0", "device=cpu", "num_points=1024",
@@ -115,26 +118,87 @@ def test_run_with_a_posenet_checkpoint(tmp_path):
         run_slam_torch.main(COMMON + ["odometry=posenet", f"log_dir={run}"])
 
 
-@pytest.mark.parametrize("preset", ["kitti_ct_icp", "kitti_posenet", "train_posenet"])
+PRESETS = {"kitti_ct_icp": ("kitti", "ct_icp"), "kitti_posenet": ("kitti", "posenet"),
+           "nclt_voxel": ("nclt", "icp"), "nhcd_voxel": ("nhcd", "icp"),
+           "urbanloco_gps": ("urbanloco", "icp"), "kitti_carla_ct_icp": ("kitti_carla", "ct_icp")}
+
+
+@pytest.mark.parametrize("preset", [*PRESETS, "train_posenet"])
 def test_presets_are_accepted(preset):
     if preset.startswith("train"):
         config = parse_cli(train_net_torch.Config, [f"config={preset}"])
-        train_net_torch._check_ported(config)
+        train_net_torch._check_config(config)
         assert config.model == "posenet" and (config.vm_height, config.vm_width) == (64, 720)
         return
     config = parse_cli(run_slam_torch.RunConfig, [f"config={preset}"])
-    run_slam_torch.check_ported(config)
-    assert config.odometry in ("ct_icp", "posenet") and config.dataset == "kitti"
+    run_slam_torch.check_config(config)
+    assert (config.dataset, config.odometry) == PRESETS[preset] and config.num_points == 8192
 
 
-@pytest.mark.parametrize("option,item", [
-    ("dataset=kitti360", "ROADMAP Queue A 9"), ("dataset=nclt", "ROADMAP Queue A 9"),
-    ("dataset=rosbag", "ROADMAP Queue A 9"), ("dataset=kitti_carla", "ROADMAP Queue A 9"),
-    ("dataset=urbanloco", "ROADMAP Queue A 9"), ("gallery=true", "ROADMAP Queue A 11"),
-])
-def test_unported_options_raise(tmp_path, option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_slam_torch.main(COMMON + [option, f"log_dir={tmp_path}"])
+@pytest.fixture(scope="module")
+def dataset_files(tmp_path_factory):
+    """Five corridor frames of 1024 points in every format of the datasets,
+    with ``run_slam_torch.py``'s dataset, root_dir and sequences for each."""
+    from pwclonet_pylidarslam_torch.data.synthetic import (
+        SyntheticSequenceConfig,
+        generate_sequence_with_times,
+    )
+
+    scans, alphas, poses = generate_sequence_with_times(
+        SyntheticSequenceConfig(n_frames=5, num_points=1024, seed=2), device="cpu")
+    root = tmp_path_factory.mktemp("datasets")
+    layout = df.write_all(str(root), scans, poses, alphas)
+    return {name: [f"dataset={name}", f"root_dir={root / sub}", f"sequences={seq}"]
+            for name, (sub, seq) in layout.items()}
+
+
+# each dataset of run_slam.py with its sequence's name, the four presets run
+# where they name the dataset. urbanloco_gps optimizes the back end at every
+# GPS fix, each ~3 s on this CPU (CG runs to its 500 iterations, as in the
+# reference), so it runs over the bag's first 2 frames
+DATASET_RUNS = {
+    "kitti360": ("00", []), "nclt": ("2012-01-08", ["config=nclt_voxel"]),
+    "ford": ("dataset-1", []), "nhcd": ("01_short_experiment", ["config=nhcd_voxel"]),
+    "rosbag": ("drive", ["rosbag_topic=/velodyne_points"]),
+    "urbanloco": ("CA-drive", ["config=urbanloco_gps", "max_frames=2"]),
+    "ply_dir": ("frames", []), "kitti_carla": ("Town01", ["config=kitti_carla_ct_icp"]),
+}
+
+
+@pytest.mark.parametrize("dataset", DATASET_RUNS)
+def test_every_dataset_runs(tmp_path, capsys, dataset_files, dataset):
+    """``run_slam_torch.py`` over the written files of each dataset: finite
+    poses from the identity, and, where the format holds ground truth (all
+    but a plain rosbag), the metrics the reference's readers read."""
+    name, extra = DATASET_RUNS[dataset]
+    argv = [*extra, *dataset_files[dataset], "device=cpu", "num_points=1024",
+            f"log_dir={tmp_path}"]
+    assert run_slam_torch.main(argv) == 0
+    poses = read_poses_txt(str(tmp_path / f"{name}.poses.txt"))
+    assert poses.shape == (2 if "max_frames=2" in extra else 5, 4, 4)
+    assert np.all(np.isfinite(poses))
+    np.testing.assert_allclose(poses[0], np.eye(4), atol=1e-6)
+    has_gt = dataset != "rosbag"
+    assert (f"{name}: t_rel=" in capsys.readouterr().out) == has_gt
+    metrics = tmp_path / "metrics.yaml"
+    assert has_gt == (metrics.exists() and "ATE" in read_metrics_yaml(str(metrics))[name])
+
+
+def test_gallery_runs(tmp_path):
+    """gallery=true writes each sequence's gallery and player (the
+    reference's ``tests/test_cli.py::test_run_slam_gallery``)."""
+    assert run_slam_torch.main(COMMON + [f"log_dir={tmp_path}", "gallery=true"]) == 0
+    gal = tmp_path / "synth00_gallery"
+    page = (gal / "index.html").read_text()
+    assert "Trajectory" in page and "frame 0" in page and "player.html" in page
+    for f in ("path_2d.png", "path_3d.png", "xyz.png", "rpy.png"):
+        assert (gal / f).exists(), f
+    assert len(list(gal.glob("frame_*_vm.png"))) == len(list(gal.glob("frame_*_bev.png"))) == 6
+    player = (gal / "player.html").read_text()
+    assert "<canvas" in player and "drag" in player and player.count("worldPts") >= 2
+    assert "http" not in player.split("<script>")[1]
+    data = json.loads(player.split("const D = ", 1)[1].split(";\nconst T")[0])
+    assert len(data["frames"]) == 6 and len(data["poses"]) == 6
 
 
 def test_batched_run_equals_the_library(tmp_path, capsys):
@@ -177,7 +241,7 @@ def test_batched_keeps_the_references_refusals(tmp_path, option):
 
 def test_kitti_batched_preset_parses():
     config = parse_cli(run_slam_torch.RunConfig, ["config=kitti_batched", "dataset=synthetic"])
-    run_slam_torch.check_ported(config)
+    run_slam_torch.check_config(config)
     assert config.batched and config.odometry == "icp" and config.num_points == 8192
     assert config.sequences == "0,1,2,3,4,5,6,7,8,9,10"
 
@@ -237,10 +301,22 @@ def test_train_net_torch_posenet_train_then_test(tmp_path, capsys):
     assert "ATE" in read_metrics_yaml(str(tmp_path / "test" / "metrics.yaml"))["09"]
 
 
-@pytest.mark.parametrize("option,item", [("dataset=kitti360", "ROADMAP Queue A 9")])
-def test_train_net_torch_unported_options_raise(tmp_path, option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_net_torch.main(["do_train=true", option, f"log_dir={tmp_path}", "device=cpu"])
+def test_train_net_torch_kitti360_train_then_test(tmp_path, capsys, dataset_files):
+    """dataset=kitti360: one epoch on the written drive's pairs at 1024
+    points, then the fused test mode on it writes the reference's result
+    files."""
+    root = dataset_files["kitti360"][1]
+    common = ["dataset=kitti360", root, "device=cpu", "num_points=1024", f"log_dir={tmp_path}"]
+    assert train_net_torch.main(common + ["do_train=true", "num_epochs=1", "batch_size=2",
+                                          "train_sequences=0", "eval_sequences=0"]) == 0
+    assert "done: epoch 0" in capsys.readouterr().out
+    record = json.loads((tmp_path / "history.jsonl").read_text().splitlines()[0])
+    assert np.isfinite(record["train_loss"]) and np.isfinite(record["eval_loss"])
+    assert train_net_torch.main(common + ["do_test=true", "test_sequences=0",
+                                          "fused_eval=true"]) == 0
+    assert "seq 00:" in capsys.readouterr().out
+    assert read_poses_txt(str(tmp_path / "test" / "00.poses.txt")).shape == (5, 4, 4)
+    assert "ATE" in read_metrics_yaml(str(tmp_path / "test" / "metrics.yaml"))["00"]
 
 
 def test_train_net_torch_synthetic_world_train_then_test(tmp_path, capsys):

@@ -1,10 +1,10 @@
 """The SLAM pipeline and its runner in the port against the reference on the
 CPU: the ``short_sequence`` cases of ``tests/test_pipeline.py`` (odometry
 only and with the back end; the runner's result files, read back by the
-reference's readers; a failing sequence), snapshots restored across
-implementations, the resync of every absolute pose, GPS priors, the drift
-scenario's first ICP step from one state, and the reference's drift
-scenario (``slow``).
+reference's readers; a failing sequence; the gallery and player), snapshots
+restored across implementations, the resync of every absolute pose, GPS
+priors, the drift scenario's first ICP step from one state, and the
+reference's drift scenario (``slow``).
 
 Scans come from the port's generator at 4096 points (the reference test's
 sequence, cut in width). The reference's pose chain moves by up to a
@@ -14,6 +14,7 @@ carried state is held to 1e-5.
 """
 
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -155,9 +156,33 @@ def test_runner_survives_failing_sequence(tmp_path, short_sequence):
     assert "disk on fire" in runner.failures["bad"]
 
 
-def test_runner_gallery_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
-        trun.SLAMRunner(trun.SLAMRunnerConfig(log_dir=str(tmp_path), gallery=True), device="cpu")
+def test_runner_writes_the_gallery(tmp_path, short_sequence, monkeypatch):
+    """gallery=True: each sequence's gallery and player, as the reference's
+    runner writes them, the player byte for byte the reference's on the same
+    scans and poses; where matplotlib cannot be imported the gallery raises
+    and the runner records the sequence as failed, as the reference's does."""
+    import dataclasses
+    import sys
+
+    from pwclonet_pylidarslam_tpu.evaluation.player import write_run_player
+
+    scans, gt = short_sequence
+    cfg = trun.SLAMRunnerConfig(slam=_slam_cfg(tpipe), log_dir=str(tmp_path / "run"),
+                                gallery=True, max_frames=4)
+    runner = trun.SLAMRunner(cfg, device="cpu")
+    assert "synth00" in runner.run({"synth00": _Source(scans, gt)}) and not runner.failures
+    gal = tmp_path / "run" / "synth00_gallery"
+    assert "frame 3" in (gal / "index.html").read_text()
+    assert len(list(gal.glob("frame_*_vm.png"))) == len(list(gal.glob("frame_*_bev.png"))) == 4
+    ref = write_run_player(str(tmp_path / "ref"), "synth00", [s[:, :3] for s in scans[:4]],
+                           runner.pipelines["synth00"].absolute_poses(), gt[:4])
+    assert (gal / "player.html").read_bytes() == Path(ref).read_bytes()
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    runner = trun.SLAMRunner(dataclasses.replace(cfg, log_dir=str(tmp_path / "bare"),
+                                                 max_frames=2), device="cpu")
+    assert runner.run({"synth00": _Source(scans, gt)}) == {}
+    assert "matplotlib" in runner.failures["synth00"]
 
 
 def _lc_kw():

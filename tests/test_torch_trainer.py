@@ -162,8 +162,8 @@ def test_train_net_torch_cli(tmp_path):
     assert read_poses_txt(str(tmp_path / "test" / "09_gt.poses.txt")).shape == (16, 4, 4)
     assert "ATE" in read_metrics_yaml(str(tmp_path / "test" / "metrics.yaml"))["09"]
     assert (tmp_path / "test" / "09_eval" / "09_error.txt").exists()
-    run = _cli("--do_train", "dataset=kitti360")
-    assert run.returncode != 0 and "ROADMAP" in run.stderr
+    run = _cli("--do_train", "dataset=kitti361", "--device", "cpu")
+    assert run.returncode != 0 and "unknown model/dataset" in run.stderr
     assert _cli().returncode == 2  # neither do_train nor do_test: the usage
 
 

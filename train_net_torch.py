@@ -23,6 +23,13 @@ Usage::
     python train_net_torch.py --do_test --dataset synthetic_world \
         --test_sequences 9 --fused_eval --log_dir ./train_out
 
+    # train on KITTI-360 drives (data_3d_raw, data_poses, calibration under
+    # root_dir), then test on one with the fused eval kernels
+    python train_net_torch.py --do_train --dataset kitti360 --root_dir /data/kitti360 \
+        --train_sequences 0,2,3,4,5,6,7 --eval_sequences 9 --log_dir ./train_out
+    python train_net_torch.py --do_test --dataset kitti360 --root_dir /data/kitti360 \
+        --test_sequences 10 --fused_eval --log_dir ./train_out
+
     # test: odometry over sequences with the latest checkpoint of log_dir
     python train_net_torch.py --do_test --dataset kitti --root_dir /data/kitti \
         --test_sequences 9,10 --log_dir ./train_out
@@ -61,6 +68,7 @@ from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.core.projection import SphericalProjector
 from pwclonet_pylidarslam_torch.data import shapes
 from pwclonet_pylidarslam_torch.data.kitti import KittiPairDataset, KittiSequence
+from pwclonet_pylidarslam_torch.data.other_datasets import Kitti360PairDataset, Kitti360Sequence
 from pwclonet_pylidarslam_torch.data.synthetic import (
     SyntheticPairDataset,
     SyntheticSequenceConfig,
@@ -99,14 +107,8 @@ from pwclonet_pylidarslam_torch.train.state import TrainConfig
 from pwclonet_pylidarslam_torch.train.trainer import PWCLONetTrainer, TrainerConfig
 from pwclonet_pylidarslam_torch.utils.config import dump_config, parse_cli
 
-# what train_net.py offers and this entry does not yet, with the ROADMAP item that owns it
-NOT_PORTED = {
-    "dataset": {
-        "kitti360": "data/other_datasets.py: ROADMAP Queue A 9",
-    },
-}
 MODELS = ("pwclonet", "posenet", "cls", "semseg")
-DATASETS = ("synthetic", "synthetic_world", "kitti", "modelnet40", "indoor3d")
+DATASETS = ("synthetic", "synthetic_world", "kitti", "kitti360", "modelnet40", "indoor3d")
 
 
 @dataclasses.dataclass
@@ -114,7 +116,7 @@ class Config:
     do_train: bool = False
     do_test: bool = False
     model: str = "pwclonet"  # pwclonet | posenet | cls | semseg
-    # synthetic | synthetic_world | kitti | modelnet40 (cls) | indoor3d (semseg)
+    # synthetic | synthetic_world | kitti | kitti360 | modelnet40 (cls) | indoor3d (semseg)
     dataset: str = "synthetic"
     root_dir: str = ""
     train_sequences: str = "0,1,2,3,4,5,6"
@@ -145,11 +147,7 @@ def _seqs(s) -> List[int]:
     return [int(x) for x in str(s).strip("[]").split(",") if x != ""]
 
 
-def _check_ported(config: Config) -> None:
-    for field, missing in NOT_PORTED.items():
-        value = getattr(config, field)
-        if value in missing:
-            raise NotImplementedError(f"{field}={value} is not ported yet ({missing[value]})")
+def _check_config(config: Config) -> None:
     if config.model not in MODELS or config.dataset not in DATASETS:
         raise ValueError(f"unknown model/dataset {config.model!r}/{config.dataset!r}")
     if config.model in ("cls", "semseg") and config.do_test and not config.do_train:
@@ -199,12 +197,14 @@ def make_batch_fns(config: Config):
 
         return train_fn, (lambda: eval_ds.batches(config.batch_size, shuffle=False))
 
-    train_ds = KittiPairDataset(
-        config.root_dir, _seqs(config.train_sequences),
+    # dataset=kitti360 (ref train.py:337-345): the KITTI pair dataset's contract
+    pairs = Kitti360PairDataset if config.dataset == "kitti360" else KittiPairDataset
+    train_ds = pairs(
+        config.root_dir, tuple(_seqs(config.train_sequences)),
         num_points=config.num_points, augment=config.augment, seed=config.seed,
     )
-    eval_ds = KittiPairDataset(
-        config.root_dir, _seqs(config.eval_sequences),
+    eval_ds = pairs(
+        config.root_dir, tuple(_seqs(config.eval_sequences)),
         num_points=config.num_points, augment=False, seed=config.seed + 1,
     )
     return (
@@ -240,6 +240,8 @@ def make_test_sequence(config: Config, s: int):
     the dataset selection)."""
     if config.dataset in ("synthetic", "synthetic_world"):
         return _SyntheticTestSequence(config, s)
+    if config.dataset == "kitti360":
+        return Kitti360Sequence(config.root_dir, s)
     return KittiSequence(config.root_dir, s)
 
 
@@ -476,7 +478,7 @@ def _key_value_args(argv: List[str]) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     config = parse_cli(Config, _key_value_args(argv))
-    _check_ported(config)
+    _check_config(config)
     os.makedirs(config.log_dir, exist_ok=True)
     if config.do_train:
         return run_train(config)
