@@ -54,12 +54,13 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
 5. train at full width through ``PWCLONetTrainer`` on the card (batch 8, 8192
    points, float32, the random-cloud batches of ``train_net_torch.py``): six
    steps of ``train_epoch`` with the counters zeroed before and read after
-   (FPS 5, kNN 19, gather 24 and scatter-add 18 launches a step, the fused
-   kernels none), every loss and gradient norm finite, no step skipped; the
-   same step from the same state and generator twice gives bit-identical
-   gradients; the checkpoint loads into a fused ``PWCLONetOdometry``, which
-   gives finite SE(3) poses; then the fast-lane learning recipe (small
-   config, 40 epochs) on the card: losses fall, relative-pose RMSE under
+   (FPS 5, kNN 19, gather 24 and scatter-add 36 launches a step: a plan and
+   a sum for each of the backward's 18; the fused kernels none), every loss
+   and gradient norm finite, no step skipped; the same step from the same
+   state and generator twice gives bit-identical gradients; the checkpoint
+   loads into a fused ``PWCLONetOdometry``, which gives finite SE(3) poses;
+   then the fast-lane learning recipe (small config, 40 epochs) on the
+   card: losses fall, relative-pose RMSE under
    0.40 of the per-frame travel and under 0.6 of the untrained net's;
 6. time the train step (CUDA events around each of six steps, forward and
    backward apart, device launches of one profiled step, peak memory), the
@@ -111,8 +112,9 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    sequence at 8192 points, the loop gates reduced to the drift scenario's
    (submaps of 6 frames, overlap 2, 20 frames apart, within 30 m), each with
    the counters zeroed before and read after: exactly 8 masked kNN and 8
-   gathers a refinement, 2 scatter-adds a Gauss-Newton iteration and 1 a CG
-   iteration launched, and the front end's per-frame counts; finite SE(3)
+   gathers a refinement, one scatter-add plan an optimization, then 2 sums a
+   Gauss-Newton iteration and 1 a CG iteration launched, and the front end's
+   per-frame counts; finite SE(3)
    poses; result files written; ms a frame, a submap and an optimization,
    iterations, host reads, device ms, launches and idle share over a
    profiled window of frames, peak memory, constraints; then
@@ -121,7 +123,11 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    one state: ``_refine_icp`` on a submap pair that closed a loop and
    ``optimize`` on a 200-node circle with loop edges (poses within 1e-4, the
    cost falling by the same factor within 1e-3), and ``optimize`` twice on
-   the card on slam-icp-loop's graph at the default capacity, bit for bit.
+   the card on slam-icp-loop's graph at the default capacity, bit for bit;
+   last, the back end's scatter-add at that graph's real shape (its active
+   edges and priors, N = 8192, C = 6 and 36): the plan and each sum timed
+   beside ``index_add_``, every sum ``torch.equal`` to the plain version on
+   the CPU copy.
 
 9. CT-ICP (plain PyTorch, none of the six kernels launched) at the full
    width of ``config/kitti_ct_icp.yaml`` (8192 points), elastic and rigid,
@@ -185,7 +191,8 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    num_points=8192, batch_size=8, ...])`` over two train worlds and one eval
    world of 48 frames (the depth cut: worlds, frames, one epoch), the counters
    zeroed before and read after: exactly FPS 5, kNN 19, gather 24 and
-   scatter-add 18 launches a step and the unfused forward's a eval batch, the
+   scatter-add 36 (18 plans and sums) launches a step and the unfused
+   forward's a eval batch, the
    fused kernels none; finite losses; the parameters moved. One train step of
    the trained state is recorded (``recorded_calls``): every FPS, kNN and
    gather call ``torch.equal`` to its plain version on its own inputs, every
@@ -437,8 +444,8 @@ LAUNCHES_PER_FORWARD = {
 # that requires grad and an output that the loss reads: the groupings of the
 # pyramid levels above the first (3, both frames in one), the flow-embedding
 # SetConv, 2 per cost volume x 4 and 1 per SetUpConv x 6. Each runs one
-# scatter-add in the backward.
-LAUNCHES_PER_TRAIN_STEP = {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 18,
+# scatter-add in the backward: two launches, a plan of its index and a sum.
+LAUNCHES_PER_TRAIN_STEP = {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 36,
                            "mlp_maxpool": 0, "attentive_aggregate": 0}
 # (S, K, Cin, widths) of the fused MLP's calls in a full-width fused forward
 # at B=1, as tools/time_point_kernels.py records them; the one with the most
@@ -663,7 +670,10 @@ def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: 
     """``idx (B, S, K)``: a grouping's neighbour indices into ``n`` source
     rows; the incoming gradient is ``upd (B, S*K, c)``, random when None. The kernel adds
     each row's updates in ascending m from 0.0f, as ``index_add_`` does on
-    the CPU: it must equal that to the bit."""
+    the CPU: it must equal that to the bit. ``ms`` times a plan and a sum,
+    as ``scatter_add_rows`` runs them; ``plan_ms`` the plan alone and
+    ``sum_ms`` a sum over a plan built once, as a caller that reuses one
+    index runs it (the back end)."""
     b = idx.shape[0]
     flat = idx.reshape(b, -1).contiguous()
     m = flat.shape[1]
@@ -674,7 +684,9 @@ def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: 
     ref = tgather.scatter_add_rows_plain(upd, flat, n)
     torch.cuda.synchronize()
     name = f"B={b} N={n} M={m} C={c} ({what})"
-    check(torch.equal(out, again), f"scatter_add {name}: two launches agree to the bit")
+    plan = tgather.ScatterPlan(flat, n)
+    check(torch.equal(out, again) and torch.equal(out, plan.sum(upd)),
+          f"scatter_add {name}: two launches, and a sum over a ready plan, agree to the bit")
     loop = tgather.scatter_add_rows_plain(upd.cpu(), flat.cpu(), n)
     check(torch.equal(out.cpu(), loop),
           f"scatter_add {name}: equal to the plain version on the CPU to the bit "
@@ -698,6 +710,8 @@ def scatter_case(gen: torch.Generator, idx: torch.Tensor, n: int, c: int, what: 
         **kernel_times(lambda: tgather.scatter_add_rows(upd, flat, n),
                        lambda: tgather.scatter_add_rows_plain(upd, flat, n),
                        lambda: upd.new_zeros((b * n, c)).index_add_(0, rows, upd2d), 50, 20),
+        "plan_ms": device_ms(lambda: tgather.ScatterPlan(flat, n), 50)["ms"],
+        "sum_ms": device_ms(lambda: plan.sum(upd), 50)["ms"],
     }
 
 
@@ -1310,10 +1324,22 @@ def profile_device_events(fn):
     return prof, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def scatter_kernel(name: str):
+    """The ``scatter_*_kernel`` that a profiler event of the port's
+    scatter-add names, else None: its plan is ``scatter_rank_kernel``,
+    ``scatter_scan_kernel`` and ``scatter_fill_kernel`` (no memset), its sum
+    ``scatter_sum_kernel``."""
+    if "gather" in name:
+        return None
+    return next((w for w in re.split(r"[\s(:<]", name)
+                 if w.startswith("scatter_") and w.endswith("_kernel")), None)
+
+
 def summarize_device_events(device: list) -> dict:
     """Device time by kernel, launches, and the share of the span from the
     first kernel's start to the last one's end in which no kernel ran (with
-    the profiler's own host overhead in it)."""
+    the profiler's own host overhead in it); the scatter-add's launches and
+    ms by kernel."""
     by_name: dict = {}
     for e in device:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -1322,14 +1348,20 @@ def summarize_device_events(device: list) -> dict:
     span_ms = (max(e.time_range.end for e in device)
                - min(e.time_range.start for e in device)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    # a scatter-add is four kernels: scatter_{rank,scan,fill,sum}_kernel
+    scatter: dict = {}  # the scatter-add's kernels apart: its plan's and its sum's
+    for k, (ms, n) in by_name.items():
+        short = scatter_kernel(k)
+        if short is not None:
+            was = scatter.get(short, {"launches": 0, "ms": 0.0})
+            scatter[short] = {"launches": was["launches"] + n, "ms": was["ms"] + ms}
     ours = {name: sum(ms for k, (ms, _) in by_name.items()
-                      if ("scatter_" in k and "_kernel" in k and "gather" not in k
-                          if name == "scatter_add" else f"{name}_kernel" in k))
+                      if (scatter_kernel(k) is not None if name == "scatter_add"
+                          else f"{name}_kernel" in k))
             for name in KERNELS}
     return {
         "device_ms": busy_ms, "span_ms": span_ms, "idle_share": 1.0 - busy_ms / span_ms,
         "device_launches": len(device), "device_ms_by_port_kernel": ours,
+        "scatter_add_by_kernel": scatter,
         "device_ms_everything_else": busy_ms - sum(ours.values()),
         "top_kernels": [{"name": k[:80], "ms": ms, "launches": n} for k, (ms, n) in top],
     }
@@ -1780,6 +1812,23 @@ def backend_scatter_cases() -> list:
             for c, what in ((6, "CG matvec and gradient"), (36, "6x6 diagonal blocks"))]
 
 
+def backend_real_shape_cases(builder) -> list:
+    """The back end's scatter-add at its real shape: the active edges and
+    priors of ``builder``'s graph (slam-icp-loop's, at the end of its run)
+    at the default node capacity, B = 1, N = 8192, M = 2e + p, C = 6 and 36,
+    each :func:`scatter_case` (``plan_ms`` the plan an optimization builds
+    once, ``sum_ms`` each accumulation, beside ``index_add_``)."""
+    graph = builder.to_device()
+    e, p = int(graph.num_edges), int(graph.num_priors)
+    acc = backend._Accumulator(backend._active_part(graph, e, p))
+    n = graph.poses.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return [{**scatter_case(gen, acc.idx[..., None], n, c,
+                            f"pose-graph back end at its real shape, {what}"),
+             "edges": e, "priors": p}
+            for c, what in ((6, "CG matvec and gradient"), (36, "6x6 diagonal blocks"))]
+
+
 def refine_gather_case(sm) -> dict:
     """The refine's gather of the matched points in submap ``sm``: (1, 16384,
     3) by (1, 16384)."""
@@ -1800,9 +1849,10 @@ def cg_launches(ran: int, config: backend.PGOConfig) -> int:
 
 def expected_slam_launches(slam, forwards: int, fused: bool) -> dict:
     """Launches a SLAM run must have made: the front end's per forward, 8
-    masked kNN and 8 gathers a refinement, and a scatter-add for each
-    back-end accumulation (2 a Gauss-Newton iteration, 1 a CG iteration
-    launched, from :func:`cg_launches`)."""
+    masked kNN and 8 gathers a refinement, and for the back end one
+    scatter-add plan an optimization and a sum for each accumulation (2 a
+    Gauss-Newton iteration, 1 a CG iteration launched, from
+    :func:`cg_launches`)."""
     out = {name: n * forwards for name, n in LAUNCHES_PER_FORWARD[fused].items()}
     refine = slam.loop_closure.stats.refinements * slam.loop_closure.config.icp_iterations
     out["knn"] += refine
@@ -1812,7 +1862,7 @@ def expected_slam_launches(slam, forwards: int, fused: bool) -> dict:
         check(o["stats"].cg_launched == sum(launched),
               f"back end: {o['stats'].cg_launched} CG iterations launched, as the chunks of "
               f"{backend.CG_CHECK_EVERY} give for {o['stats'].cg_iterations}")
-        out["scatter_add"] += sum(2 + n for n in launched)
+        out["scatter_add"] += 1 + sum(2 + n for n in launched)
     return out
 
 
@@ -1840,8 +1890,10 @@ def slam_profile(cfg, make_odometry, scans: np.ndarray, window_end: int) -> dict
     opts = len(slam.optimizations)
     subs = slam.loop_closure.stats.submaps
     profile_once(lambda: torch.ones(8, device="cuda").sum())  # the tracer warm
+    counted = _cuda.launch_counts()["scatter_add"]
     device = profile_once(lambda: [slam.process_next_frame(scans[t])
                                    for t in range(w0, window_end)])
+    counted = _cuda.launch_counts()["scatter_add"] - counted
     prof = summarize_device_events(device)
     frames = window_end - w0
     return {"window_frames": [w0, window_end],
@@ -1851,7 +1903,26 @@ def slam_profile(cfg, make_odometry, scans: np.ndarray, window_end: int) -> dict
             "launches_per_frame": prof["device_launches"] / frames,
             "idle_share": prof["idle_share"],
             "device_ms_by_port_kernel": prof["device_ms_by_port_kernel"],
+            "scatter_add_launches_counted": counted,
+            "scatter_add_by_kernel": prof["scatter_add_by_kernel"],
             "top_kernels": prof["top_kernels"][:8]}
+
+
+def check_backend_device_launches(label: str, profile: dict, backend_ran: bool) -> None:
+    """The profiled window's device events hold the back end to one plan an
+    optimization (a rank, a scan and a fill kernel) and one
+    ``scatter_sum_kernel`` for each other scatter-add launch that
+    ``_cuda`` counted in the window (each accumulation one device launch);
+    where the back end ran, the window holds an optimization."""
+    plans = profile["window_optimizations"]
+    sums = profile["scatter_add_launches_counted"] - plans
+    seen = {k: v["launches"] for k, v in profile["scatter_add_by_kernel"].items()}
+    want = ({"scatter_rank_kernel": plans, "scatter_scan_kernel": plans,
+             "scatter_fill_kernel": plans, "scatter_sum_kernel": sums} if plans else {})
+    check(seen == want and (plans > 0 or not backend_ran),
+          f"{label}: the profiled window's scatter-add device kernels {seen} are one plan "
+          f"for each of its {plans} optimizations and one sum for each of its {sums} "
+          "accumulations")
 
 
 def slam_drive(label: str, cfg, make_odometry, scans: np.ndarray, gt: np.ndarray,
@@ -1911,6 +1982,7 @@ def slam_drive(label: str, cfg, make_odometry, scans: np.ndarray, gt: np.ndarray
     }
     window_end = opts[0]["nodes"] if opts else len(scans)
     out["profile"] = slam_profile(cfg, make_odometry, scans, window_end)
+    check_backend_device_launches(label, out["profile"], bool(opts))
     out["_slam"] = slam
     log(f"{label}: {out['ms_per_frame_median']:.1f} ms a frame (median), "
         f"{out['ms_per_submap_median']:.1f} ms a submap, {len(opts)} optimizations "
@@ -2099,6 +2171,12 @@ def slam_phase(ckpt_dir: str) -> dict:
     drift_lc = drift.pop("loop_closure")
     lc = icp_slam.loop_closure if icp_slam.loop_closure.constraints else drift_lc
     out["card_vs_cpu"] = slam_card_vs_cpu(lc, icp_slam.builder)
+    log("phase 8: the back end's scatter-add at slam-icp-loop's real shape")
+    out["backend_scatter_real_shape"] = backend_real_shape_cases(icp_slam.builder)
+    for case in out["backend_scatter_real_shape"]:
+        log(f"{case['shape']}: a sum {case['sum_ms']:.5f} ms over a plan of "
+            f"{case['plan_ms']:.5f} ms (plan and sum {case['ms']:.5f}), index_add_ "
+            f"{case['library_ms']:.5f}, bound {case['bound_ms']:.5f}")
     out["drift"] = drift
     out["seconds"] = time.perf_counter() - t0
     out["configs"] = {
@@ -2575,14 +2653,15 @@ CLS_SEG_CELLS = {
 # known points kNN 1 (three_nn, k=3) and gather 1 (three_interpolate). A
 # train step adds one scatter-add for each gather whose source needs a
 # gradient: the groupings of every stage above the first (the first groups
-# xyz and the input's own channels) and every interpolation.
+# xyz and the input's own channels) and every interpolation: two launches
+# each, a plan of its index and a sum.
 CLS_SEG_LAUNCHES = {
     "cls-ssg": ({"fps": 2, "knn": 0, "gather": 4},
-                {"fps": 2, "knn": 0, "gather": 4, "scatter_add": 1}),
+                {"fps": 2, "knn": 0, "gather": 4, "scatter_add": 2}),
     "cls-msg": ({"fps": 2, "knn": 0, "gather": 8},
-                {"fps": 2, "knn": 0, "gather": 8, "scatter_add": 3}),
+                {"fps": 2, "knn": 0, "gather": 8, "scatter_add": 6}),
     "semseg-ssg": ({"fps": 4, "knn": 4, "gather": 12},
-                   {"fps": 4, "knn": 4, "gather": 12, "scatter_add": 7}),
+                   {"fps": 4, "knn": 4, "gather": 12, "scatter_add": 14}),
 }
 # card against CPU at the tiny plans of tests/test_cls_seg.py (the
 # classifier at B=8: its head's BatchNorm over B rows is degenerate at B=2):
@@ -2986,8 +3065,10 @@ def summed(rows: list) -> dict:
     """A kernel's calls of one step or forward, summed: each timed shape
     times its launches (no library time where a shape has none)."""
     library = all(r["library_ms"] is not None for r in rows)
+    planned = all("sum_ms" in r for r in rows)  # the scatter-add's plan and sum apart
     out = weighted_sums(rows, ("ms", "call_ms", "plain_ms", "bound_ms")
-                        + (("library_ms",) if library else ()))
+                        + (("library_ms",) if library else ())
+                        + (("plan_ms", "sum_ms") if planned else ()))
     by = {r["bound_by"] for r in rows}
     return {"library_ms": None, **out, "shapes": len(rows),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3649,10 +3730,12 @@ def parallel_backend_case(mesh) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _cuda.launch_counts()
-    expected = sum(2 + cg_launches(ran, cfg) for ran in stats.cg_iterations)
+    # one plan, then 2 sums a Gauss-Newton iteration and 1 a CG iteration launched
+    expected = 1 + sum(2 + cg_launches(ran, cfg) for ran in stats.cg_iterations)
     check(launches["scatter_add"] == expected and sum(launches.values()) == expected,
           f"optimize_sharded launched the scatter-add kernel {launches['scatter_add']} times "
-          f"({expected} from its {stats.gn_iterations} GN iterations) and no other kernel")
+          f"({expected}: a plan and the sums of its {stats.gn_iterations} GN iterations) "
+          "and no other kernel")
     return {"equal": torch.equal(ref.poses, got.poses), "launches": launches,
             "gn_iterations": stats.gn_iterations, "cg_iterations": stats.cg_iterations,
             "seconds": seconds}
@@ -4362,6 +4445,7 @@ def main() -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             **({"chain_bound_ms": head["chain_bound_ms"]} if "chain_bound_ms" in head else {}),
+            **({key: head[key] for key in ("plan_ms", "sum_ms")} if "sum_ms" in head else {}),
             "shape": head["shape"], "cases": cases[name],
         })
     width = "8192 points, reference channel plan, float32, seeded random weights"

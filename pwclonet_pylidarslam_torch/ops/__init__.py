@@ -8,6 +8,7 @@ from pwclonet_pylidarslam_torch.ops.ball_query import ball_query
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate
 from pwclonet_pylidarslam_torch.ops.fps import furthest_point_sample
 from pwclonet_pylidarslam_torch.ops.gather import (
+    ScatterPlan,
     gather_points,
     group_points,
     group_points_multi,
@@ -18,6 +19,7 @@ from pwclonet_pylidarslam_torch.ops.knn import knn
 from pwclonet_pylidarslam_torch.ops.mlp import fold_bn, fold_stack, mlp_maxpool
 
 __all__ = [
+    "ScatterPlan",
     "attentive_aggregate",
     "ball_query",
     "fold_bn",

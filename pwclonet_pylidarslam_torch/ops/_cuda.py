@@ -53,8 +53,10 @@ _SIGNATURES = {
     # out_d, out_i, warps, stream
     "pwclo_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     "pwclo_gather": (_P, _P, _I, _I, _I, _I, _P, _P),
-    # updates, idx, b, n, m, c, tile, scratch, scratch ints, out, stream
-    "pwclo_scatter_add": (_P, _P, _I, _I, _I, _I, _I, _P, _L, _P, _P),
+    # idx, b, n, m, tile, scratch, scratch ints, stream
+    "pwclo_scatter_plan": (_P, _I, _I, _I, _I, _P, _L, _P),
+    # updates, scratch, scratch ints, b, n, m, c, tile, out, stream
+    "pwclo_scatter_sum": (_P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
     # x, params, centres, k, n_layers, c0..c3, block_centres, tile_rows, out, stream
     "pwclo_mlp_maxpool": (_P, _P) + (_I,) * 9 + (_P, _P),
     # center_xyz, grouped_xyz, center_feat, grouped_feat, enc/emb/att packed

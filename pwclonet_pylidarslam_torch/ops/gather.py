@@ -6,7 +6,9 @@ Counterpart of ``pwclonet_pylidarslam_tpu/ops/gather.py``. On a CUDA tensor
 gradient the deterministic scatter-add of ``csrc/scatter_add.cu``
 (:func:`scatter_add_rows`); on a CPU tensor it runs
 :func:`gather_points_plain` under PyTorch's own autograd. The gather is a
-bit-exact copy of the indexed rows. Indices are int32, assumed in range as
+bit-exact copy of the indexed rows. The scatter-add is a plan (the index
+inverted) and a sum; :class:`ScatterPlan` keeps the plan for callers that
+sum many update tensors over one index. Indices are int32, assumed in range as
 in the reference, and get no gradient.
 """
 
@@ -43,16 +45,24 @@ def _check_rows_and_idx(name: str, rows: torch.Tensor, idx: torch.Tensor) -> Non
         )
 
 
-def scatter_add_plan(b: int, n: int, m: int) -> tuple:
-    """``(tile, scratch ints)`` of the scatter-add kernel: it ranks the
-    entries in tiles of ``tile`` consecutive entries of a sample (a power of
-    two, at least 256 and at least ``n``), and its scratch holds each entry's
-    rank within its tile and the inverted index (each row's updates in
-    ascending m), one int each an entry, then each tile's first slot of each
-    row."""
+# A row of more than LONG_ROW updates is summed from shared memory, a shorter
+# one by one thread a channel: ``kLongRow`` of ``csrc/scatter_add.cu``, which
+# says how it was chosen. The plan's scratch has room to list such rows; the
+# kernel refuses scratch too small for its own threshold.
+LONG_ROW = 128
+
+
+def scatter_plan_sizes(b: int, n: int, m: int) -> tuple:
+    """``(tile, scratch ints, long rows)`` of a scatter-add plan: it ranks
+    the entries in tiles of ``tile`` consecutive entries of a sample (a power
+    of two, at least 256 and at least ``n``), and its scratch holds each
+    entry's rank within its tile and the inverted index (each row's updates
+    in ascending m), one int each an entry, then each tile's first slot of
+    each row; beside those it lists the rows of more than ``LONG_ROW``
+    updates, at most ``b * (m // (LONG_ROW + 1))`` of them."""
     tile = max(256, 1 << (n - 1).bit_length())
     tiles = max(1, -(-m // tile))
-    return tile, 2 * b * m + b * tiles * n
+    return tile, 2 * b * m + b * tiles * n, b * (m // (LONG_ROW + 1))
 
 
 def _gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -68,32 +78,76 @@ def _gather_points_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class ScatterPlan:
+    """An index ``idx (B, M)`` into ``n`` rows, inverted once, to sum many
+    update tensors over it: ``ScatterPlan(idx, n).sum(updates)`` is
+    :func:`scatter_add_rows` ``(updates, idx, n)``, to the bit. On a CPU
+    index the plan keeps the index and each sum runs the plain version; on a
+    CUDA index it launches the kernel's plan once (int32, contiguous, or it
+    raises), and each sum is one launch of the kernel's sum, which takes
+    contiguous float32 updates ``(B, M, C)`` on the same device and raises
+    on anything else."""
+
+    def __init__(self, idx: torch.Tensor, n: int):
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        self.idx, self.n = idx, n
+        self._scratch = None
+        if idx.device.type == "cpu":
+            return
+        _cuda.check_cuda_tensor("idx", idx, (torch.int32,), 2)
+        b, m = idx.shape
+        self.tile, ints, longs = scatter_plan_sizes(b, n, m)
+        # and the long rows (row, first slot, length), and their count
+        self._ints = ints + 3 * longs + 1
+        self._scratch = torch.empty(self._ints, dtype=torch.int32, device=idx.device)
+        if b:
+            _cuda.launch(
+                "scatter_add", "pwclo_scatter_plan", idx.device,
+                idx.data_ptr(), b, n, m, self.tile, self._scratch.data_ptr(), self._ints,
+                _cuda.stream_of(idx),
+            )
+
+    def sum(self, updates: torch.Tensor) -> torch.Tensor:
+        """``out[b, j, :] = Σ_{m: idx[b, m] = j} updates[b, m, :]``, the rows
+        of one ``j`` added in ascending ``m``."""
+        if self._scratch is None:
+            if updates.device.type != "cpu":
+                raise ValueError(f"the plan's index lies on the CPU, the updates on "
+                                 f"{updates.device}")
+            return scatter_add_rows_plain(updates, self.idx, self.n)
+        _check_rows_and_idx("updates", updates, self.idx)
+        b, m = self.idx.shape
+        if updates.shape[1] != m:
+            raise ValueError(f"updates must be (B, M, C) with (B, M) = {(b, m)}, "
+                             f"got {tuple(updates.shape)}")
+        c = updates.shape[2]
+        out = torch.empty((b, self.n, c), dtype=updates.dtype, device=updates.device)
+        if out.numel():
+            _cuda.launch(
+                "scatter_add", "pwclo_scatter_sum", updates.device,
+                updates.data_ptr(), self._scratch.data_ptr(), self._ints, b, self.n, m, c,
+                self.tile, out.data_ptr(), _cuda.stream_of(updates),
+            )
+        return out
+
+
 def _scatter_add_rows_cuda(updates: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    _check_rows_and_idx("updates", updates, idx)
-    b, m, c = updates.shape
-    if idx.shape[1] != m:
-        raise ValueError(f"idx must be (B, M) = {(b, m)}, got {tuple(idx.shape)}")
-    if n < 1:
-        raise ValueError(f"n must be >= 1, got {n}")
-    out = torch.empty((b, n, c), dtype=updates.dtype, device=updates.device)
-    if out.numel():
-        tile, ints = scatter_add_plan(b, n, m)
-        scratch = torch.empty(ints, dtype=torch.int32, device=updates.device)
-        _cuda.launch(
-            "scatter_add", "pwclo_scatter_add", updates.device,
-            updates.data_ptr(), idx.data_ptr(), b, n, m, c, tile, scratch.data_ptr(), ints,
-            out.data_ptr(), _cuda.stream_of(updates),
-        )
-    return out
+    _check_rows_and_idx("updates", updates, idx)  # before the plan's launch
+    if idx.shape[1] != updates.shape[1]:
+        raise ValueError(f"idx must be (B, M) = {tuple(updates.shape[:2])}, "
+                         f"got {tuple(idx.shape)}")
+    return ScatterPlan(idx, n).sum(updates)
 
 
 def scatter_add_rows(updates: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """``updates (B, M, C)`` summed into ``(B, n, C)`` by ``idx (B, M)``:
     ``out[b, j, :] = Σ_{m: idx[b, m] = j} updates[b, m, :]``, the rows of one
     ``j`` added in ascending ``m``. CPU tensors take the plain version; CUDA
-    tensors take the kernel, which takes contiguous float32 updates and int32
-    indices and raises on anything else. Two calls on the same inputs agree
-    to the bit."""
+    tensors take the kernel (a plan, then a sum: two launches), which takes
+    contiguous float32 updates and int32 indices and raises on anything
+    else. Two calls on the same inputs agree to the bit. To sum many update
+    tensors over one index, build one :class:`ScatterPlan`."""
     if updates.device.type == "cpu":
         return scatter_add_rows_plain(updates, idx, n)
     return _scatter_add_rows_cuda(updates, idx, n)

@@ -7,9 +7,10 @@ jacobians, H·v products) summed into per-node rows. Here the edges and the
 priors are split over the axis in contiguous ranges of their capacity and
 the nodes (V × 4 × 4) are replicated. Each rank runs the back end's own
 step over the active part of its ranges (jacobians by ``torch.func.jacfwd``,
-per-node sums through ``ops/gather.py::scatter_add_rows``, the scatter-add
-kernel on CUDA), and every per-node sum (the gradient, each H·v product, the
-block diagonal) is then all-reduced. Every value the loops read on the host
+per-node sums through the back end's ``ops/gather.py::ScatterPlan``, its
+index planned once an optimization, the scatter-add kernel on CUDA), and
+every per-node sum (the gradient, each H·v product, the block diagonal) is
+then all-reduced. Every value the loops read on the host
 comes from those sums, so all ranks leave each loop together.
 
 On one rank the result is ``backend.optimize``'s, bit for bit. On more, a

@@ -16,9 +16,10 @@ Graphs keep a fixed capacity, with inactive padding, as in the reference.
 
 Accumulation. The reference adds the per-edge terms into per-node rows with
 ``.at[idx].add`` (edge_i terms, then edge_j, then priors). Here each such sum
-is one call of ``ops/gather.py::scatter_add_rows`` with B=1, N = the node
-capacity and the three sets of updates concatenated in that order: on the
-card its kernel adds each row's terms in ascending order, so every node sums
+is one sum of an ``ops/gather.py::ScatterPlan`` with B=1, N = the node
+capacity and the three sets of updates concatenated in that order; the index
+is planned once an optimization, so each sum is one launch. On the card its
+kernel adds each row's terms in ascending order, so every node sums
 its terms in the reference's order and two optimizations agree to the bit
 (``index_add_`` adds with float atomics in an order that changes from run to
 run, which 500 CG iterations amplify). On the CPU the plain version adds in
@@ -49,7 +50,7 @@ import torch
 
 from pwclonet_pylidarslam_torch.core import se3
 from pwclonet_pylidarslam_torch.device import resolve_device
-from pwclonet_pylidarslam_torch.ops.gather import scatter_add_rows
+from pwclonet_pylidarslam_torch.ops.gather import ScatterPlan
 from pwclonet_pylidarslam_torch.slam.icp_odometry import StepStats, full_fp32_products
 
 # default information diagonals (trans ×3, rot ×3)
@@ -265,17 +266,19 @@ class _Accumulator:
     """Per-node sums of the edge_i, edge_j and prior terms, in that order,
     as one row scatter-add: ``(E, C), (E, C), (P, C) → (V, C)``; then
     ``reduce`` (the sum over the processes that hold the other edges,
-    ``parallel/sharded_backend.py``) where given."""
+    ``parallel/sharded_backend.py``) where given. The index is planned once,
+    on the graph's device: each sum is then one launch of the kernel."""
 
     def __init__(self, graph: PoseGraph,
                  reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         self.n = graph.poses.shape[0]
         self.idx = torch.cat([graph.edge_i, graph.edge_j, graph.prior_node]).to(torch.int32)[None]
+        self.plan = ScatterPlan(self.idx, self.n)
         self.reduce = reduce
 
     def __call__(self, yi: torch.Tensor, yj: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
         upd = torch.cat([yi, yj, yp])
-        out = scatter_add_rows(upd.reshape(1, self.idx.shape[1], -1), self.idx, self.n)[0]
+        out = self.plan.sum(upd.reshape(1, self.idx.shape[1], -1))[0]
         return out if self.reduce is None else self.reduce(out)
 
 

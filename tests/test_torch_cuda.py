@@ -236,6 +236,72 @@ def test_scatter_add_kernel_segment_lengths(cuda_device, rng, case):
     _scatter_add_exact(_rand(rng, cuda_device, b, idx.shape[1], c), idx, n)
 
 
+def _segments(rng, lengths, n, b):
+    """``(b, sum(lengths))`` int32 indices in which row ``r`` of each sample
+    takes ``lengths[r]`` updates, scattered over m at random."""
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    assert len(lengths) <= n
+    return np.stack([rng.permutation(rows) for _ in range(b)]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,c,targets", [
+    (8, 2048, 32768, 19, None), (2, 64, 5000, 7, 3), (16, 2048, 32768, 19, 40),
+    (3, 5000, 20001, 36, None), (1, 8192, 150, 6, 80), (2, 10, 0, 4, None),
+])
+def test_scatter_plan_reused_over_many_updates(cuda_device, rng, b, n, m, c, targets):
+    """One plan summing several update tensors: each sum ``torch.equal`` to
+    the plain version on the CPU copy and to a fresh ``scatter_add_rows``;
+    rows of a few updates, and long rows among empty ones (3 and 40
+    targets)."""
+    high = n if targets is None else targets
+    idx = torch.from_numpy(rng.integers(0, high, size=(b, m)).astype(np.int32)).to(cuda_device)
+    _cuda.reset_launch_counts()
+    plan = tgather.ScatterPlan(idx, n)
+    for width in (c, c, 1, 36):
+        upd = _rand(rng, cuda_device, b, m, width)
+        out = plan.sum(upd)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), tgather.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n))
+        assert torch.equal(out, tgather.scatter_add_rows(upd, idx, n))
+    # the plan once; each round a sum, then a fresh call's plan and sum
+    assert _cuda.launch_counts()["scatter_add"] == 1 + 4 * (1 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 6, 19, 36, 67, 131])
+@pytest.mark.parametrize("case", ["around the threshold", "4,118 and 20,000"])
+def test_scatter_add_long_rows(cuda_device, rng, case, c):
+    """Segments just under, at and just over the long-row threshold (the
+    thread-per-channel rows and the block-per-row ones), and of 4,118 and
+    20,000 updates, among short rows and empty ones, at the widths of the
+    path and at odd ones."""
+    t = tgather.LONG_ROW
+    if case == "around the threshold":
+        lengths = [t - 1, t, t + 1, t + 2, 2 * t, 1, 0, 3] * 9
+    else:
+        lengths = [4118, 20000, t + 1, 7, 0, 1] + [2] * 50
+    idx = torch.from_numpy(_segments(rng, lengths, 700, 2)).to(cuda_device)
+    _scatter_add_exact(_rand(rng, cuda_device, 2, idx.shape[1], c), idx, 700)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 37, 200])
+def test_scatter_plan_at_the_back_ends_shape(cuda_device, rng, m):
+    """The back end's real accumulation: B=1, N = 8192 nodes, M <= 200
+    terms over the first ~100 nodes, C = 6 and 36. Most rows take no term:
+    the sum writes their zeros (the output's memory is filled with NaN
+    first, as a used block of the allocator may hold anything)."""
+    idx = torch.from_numpy(rng.integers(0, 100, size=(1, m)).astype(np.int32)).to(cuda_device)
+    plan = tgather.ScatterPlan(idx, 8192)
+    for c in (6, 36, 6):
+        torch.full((1, 8192, c), float("nan"), device=cuda_device)  # freed, reused below
+        upd = _rand(rng, cuda_device, 1, m, c)
+        out = plan.sum(upd)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), tgather.scatter_add_rows_plain(upd.cpu(), idx.cpu(), 8192))
+
+
 @pytest.mark.cuda
 def test_gather_gradient_is_the_scatter_add_kernel(cuda_device, rng):
     src = _rand(rng, cuda_device, 2, 512, 35).requires_grad_()
@@ -245,7 +311,8 @@ def test_gather_gradient_is_the_scatter_add_kernel(cuda_device, rng):
     a, b = tgather.group_points_multi(idx, src, other)  # one gather, slices of its output
     loss = (a ** 2).sum() + (b[..., :2] * 3.0).sum()
     loss.backward()
-    assert _cuda.launch_counts()["gather"] == 1 and _cuda.launch_counts()["scatter_add"] == 1
+    # the backward's scatter-add: a plan and a sum
+    assert _cuda.launch_counts()["gather"] == 1 and _cuda.launch_counts()["scatter_add"] == 2
     assert idx.grad is None
     cpu_src = src.detach().cpu().requires_grad_()
     cpu_other = other.detach().cpu().requires_grad_()
@@ -255,7 +322,7 @@ def test_gather_gradient_is_the_scatter_add_kernel(cuda_device, rng):
     torch.testing.assert_close(other.grad.cpu(), cpu_other.grad, atol=1e-4, rtol=1e-5)
     # a source that does not require grad launches no scatter-add
     tgather.gather_points(src.detach(), idx[:, :, 0].contiguous())
-    assert _cuda.launch_counts()["scatter_add"] == 1
+    assert _cuda.launch_counts()["scatter_add"] == 2
 
 
 def _stack(rng, cin, widths, device):
@@ -401,8 +468,8 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
            _stack(rng, 10, (6,), cuda_device), None, _stack(rng, 6 + 6 + 6, (6,), cuda_device), True)
     ops.attentive_aggregate(*agg)
     rows = torch.zeros(1, 64, dtype=torch.int32, device=cuda_device)
-    tgather.scatter_add_rows(pts, rows, 8)
-    once = {"fps": 1, "knn": 1, "gather": 1, "scatter_add": 1, "mlp_maxpool": 1,
+    tgather.scatter_add_rows(pts, rows, 8)  # a plan and a sum
+    once = {"fps": 1, "knn": 1, "gather": 1, "scatter_add": 2, "mlp_maxpool": 1,
             "attentive_aggregate": 1}
     assert _cuda.launch_counts() == once
     with pytest.raises(TypeError):
@@ -426,6 +493,10 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     with pytest.raises(ValueError):  # parameters left on the CPU
         ops.mlp_maxpool(x, _stack(rng, 6, (8,), "cpu"))
     assert _cuda.launch_counts() == once
+    plan = tgather.ScatterPlan(rows, 8)  # a plan kept: one launch, then one a sum
+    for _ in range(3):
+        plan.sum(pts)
+    assert _cuda.launch_counts()["scatter_add"] == 2 + 1 + 3
 
 
 # --- classic ICP odometry (plain PyTorch): the card against the CPU ----------
@@ -695,6 +766,42 @@ def test_backend_scatter_add_matches_plain(cuda_device, rng, c):
     cpu = tgather.scatter_add_rows_plain(torch.cat(parts).cpu()[None], acc.idx.cpu(), 8192)[0]
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_backend_accumulation_is_one_device_kernel(cuda_device, rng):
+    """The back end's plan is built once (a rank, a scan and a fill kernel)
+    and each accumulation is then one ``scatter_sum_kernel`` on the device,
+    as the profiler sees them: at the 200-node circle's shape, ten
+    accumulations profiled on their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pwclonet_pylidarslam_torch.slam import backend
+
+    def scatter_kernels(fn) -> tuple:
+        """(rank, scan, fill, sum) device kernels in ``fn()``; each
+        scatter-add kernel is one of the four."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "scatter_" in e.name]
+        seen = tuple(sum(f"scatter_{k}_kernel" in n for n in names)
+                     for k in ("rank", "scan", "fill", "sum"))
+        assert sum(seen) == len(names)
+        return seen
+
+    graph = _circle_graph().to_device(device=cuda_device)
+    # a process's first profile can lose its earliest device events
+    scatter_kernels(lambda: torch.ones(8, device=cuda_device).sum())
+    box = []
+    assert scatter_kernels(lambda: box.append(backend._Accumulator(graph))) == (1, 1, 1, 0)
+    e, p = graph.edge_i.shape[0], graph.prior_node.shape[0]
+    parts = [_rand(rng, cuda_device, m, 6) for m in (e, e, p)]
+    _cuda.reset_launch_counts()
+    assert scatter_kernels(lambda: [box[0](*parts) for _ in range(10)]) == (0, 0, 0, 10)
+    assert _cuda.launch_counts()["scatter_add"] == 10
 
 
 @pytest.mark.cuda

@@ -240,6 +240,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_scatter_add_scratch(b, n, m, tile, ints):
     """Tiles of a power of two >= max(256, N) entries; scratch of a rank and a
     member an entry, and a first slot for each row in each tile, which comes
-    to at most M + tile ints a sample."""
-    assert tgather.scatter_add_plan(b, n, m) == (tile, ints)
+    to at most M + tile ints a sample; beside it, room to list the rows of
+    more than ``LONG_ROW`` updates: a sample has at most M // (LONG_ROW + 1)."""
+    longs = b * (m // (tgather.LONG_ROW + 1))
+    assert tgather.scatter_plan_sizes(b, n, m) == (tile, ints, longs)
     assert ints - 2 * b * m <= b * (m + tile)

@@ -5,6 +5,7 @@ every shape the full-width PWCLO-Net gives them, on one CUDA card.
     python3 tools/time_point_kernels.py [--root DIR] [--reps N] [--per-frame]
                                         [--ops fps,knn,gather,scatter_add,
                                                attentive_aggregate,mlp_maxpool]
+                                        [--batch random|world]
 
 ``--root`` is the directory that holds the package (default: this
 repository). To compare two versions of a kernel, unpack the other tree
@@ -25,11 +26,23 @@ with ready int64 rows, and the byte bound (each input read once, each output
 written once, over 3.35 TB/s), and checks the kernel against its plain
 version to the bit (``bit_equal``; the scatter-add's on the CPU copy of its
 inputs, a sequential loop over m). The scatter-add is also timed at one shape
-of skewed rows (``scatter_add_skewed``). Each kernel is timed twice: on inputs that
-repeated calls leave in the 50 MB L2 (``ms``), and alone after a 128 MB
-buffer is rewritten (``cold_ms``). A profile of that train-mode forward and
-backward gives what the two kernels really take there
-(``train_step_profile``).
+of skewed rows (``scatter_add_skewed``), and at the pose-graph back end's
+real shape (``scatter_add_backend``: B=1, N=8192 nodes, M = 2e + p = 236,
+the active edges of an 80-frame run's graph with 79 odometry and 39 loop
+edges, as slam-icp-loop's, C = 6 and 36). Each kernel is timed twice: on
+inputs that repeated calls leave in the 50 MB L2 (``ms``), and alone after a
+128 MB buffer is rewritten (``cold_ms``). A profile of that train-mode
+forward and backward gives what the two kernels really take there
+(``train_step_profile``). In a tree whose scatter-add is a plan and a sum
+(``ops/gather.py::ScatterPlan``), ``ms`` is the two, as
+``scatter_add_rows`` runs them, ``plan_ms`` the plan alone and ``sum_ms`` a
+sum over a plan built once (the back end's case: each accumulation). The
+scatter-add's long-row threshold and channel group (``kLongRow``,
+``kGroup`` of ``csrc/scatter_add.cu``) are compared as copies of the
+package built with other values, under ``--root``. ``--batch world``
+records the train step on a batch of KITTI-profile world frames
+(``train_net_torch.py dataset=synthetic_world``, 8192 points, batch 8, its
+model at seeded weights) instead of the random clouds.
 
 The two fused kernels of the eval path (``--ops
 attentive_aggregate,mlp_maxpool``; not in the default set) are timed at the
@@ -63,6 +76,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -125,7 +139,8 @@ def step_profile(run) -> dict:
     """Device time of the gather and scatter-add kernels in ``run()`` (one
     train-mode forward and backward), from the profiler: their time, their
     kernel launches, and every memset's (an earlier scatter-add began with
-    one), beside the device time of everything."""
+    one; its plan now runs three kernels and no memset), beside the device
+    time of everything."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,21 +224,57 @@ def scatter_row(gather_ops, key: tuple, launches: int, idx: torch.Tensor, reps: 
     upd2d = upd.reshape(b * m, c)
     longest = int(torch.bincount(rows).max()) if rows.numel() else 0
     # the kernel adds in ascending m, as the plain version does on the CPU
-    equal = torch.equal(gather_ops.scatter_add_rows(upd, idx, n).cpu(),
-                        gather_ops.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n))
+    out = gather_ops.scatter_add_rows(upd, idx, n)
+    equal = torch.equal(out.cpu(), gather_ops.scatter_add_rows_plain(upd.cpu(), idx.cpu(), n))
     nbytes = 4 * (b * m * c + b * m + b * n * c)  # updates, idx, out
-    return {"shape": f"B={b} N={n} M={m} C={c}", "launches": launches,
-            "longest_segment": longest, "bit_equal": equal,
-            "ms": device_ms(lambda: gather_ops.scatter_add_rows(upd, idx, n), reps),
-            "cold_ms": device_ms(lambda: gather_ops.scatter_add_rows(upd, idx, n), reps, flush),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "library_ms": device_ms(
-                lambda: upd.new_zeros((b * n, c)).index_add_(0, rows, upd2d), reps)}
+    row = {"shape": f"B={b} N={n} M={m} C={c}", "launches": launches,
+           "longest_segment": longest, "bit_equal": equal,
+           "ms": device_ms(lambda: gather_ops.scatter_add_rows(upd, idx, n), reps),
+           "cold_ms": device_ms(lambda: gather_ops.scatter_add_rows(upd, idx, n), reps, flush),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "library_ms": device_ms(
+               lambda: upd.new_zeros((b * n, c)).index_add_(0, rows, upd2d), reps)}
+    plan_cls = getattr(gather_ops, "ScatterPlan", None)
+    if plan_cls is not None:  # a tree whose scatter-add is a plan and a sum
+        plan = plan_cls(idx, n)
+        row["bit_equal"] = equal and torch.equal(plan.sum(upd), out)
+        row["plan_ms"] = device_ms(lambda: plan_cls(idx, n), reps)
+        row["sum_ms"] = device_ms(lambda: plan.sum(upd), reps)
+    return row
 
 
 def weighted_sums(rows: list, keys=("ms", "cold_ms", "bound_ms", "library_ms")) -> dict:
+    # the scatter-add's plan and sum apart, where timed
+    keys += tuple(k for k in ("plan_ms", "sum_ms") if rows and all(k in r for r in rows))
     return {"launches": sum(r["launches"] for r in rows),
             **{key: sum(r["launches"] * r[key] for r in rows) for key in keys}}
+
+
+def backend_edges(nodes: int = 80, loops: int = 39, seed: int = 5) -> np.ndarray:
+    """``(1, 2e)`` int32: the edge_i then edge_j of a pose graph over
+    ``nodes`` frames, an odometry edge between each two in a row and
+    ``loops`` loop edges between frames at least 20 apart, as a
+    there-and-back run closes them (no priors)."""
+    rng = np.random.default_rng(seed)
+    i = list(range(nodes - 1))
+    j = list(range(1, nodes))
+    while len(i) < nodes - 1 + loops:
+        a, b = sorted(rng.integers(0, nodes, size=2))
+        if b - a >= 20:
+            i.append(int(a))
+            j.append(int(b))
+    return np.asarray([i + j], dtype=np.int32)
+
+
+def backend_rows(gather_ops, reps: int, flush: torch.Tensor) -> list:
+    """The back end's accumulation at its real shape (:func:`backend_edges`
+    into the pipeline's 8192 nodes), C = 6 and 36: ``ms`` is a plan and a
+    sum; ``sum_ms`` (each accumulation of an optimization) a sum over the
+    plan its optimization builds once, ``plan_ms`` that plan; in a tree
+    without a plan, ``scatter_add_rows`` is what each accumulation runs."""
+    idx = torch.from_numpy(backend_edges()).cuda()
+    return [scatter_row(gather_ops, (1, 8192, idx.shape[1], c), 0, idx, reps, flush)
+            for c in (6, 36)]
 
 
 def fused_targets(cv_mod, mlp_mod) -> dict:
@@ -301,6 +352,8 @@ def main() -> int:
     parser.add_argument("--ops", default="fps,knn,gather,scatter_add",
                         help="comma-separated subset of fps, knn, gather, scatter_add, "
                              "attentive_aggregate, mlp_maxpool")
+    parser.add_argument("--batch", choices=("random", "world"), default="random",
+                        help="the recorded train step's batch: random clouds or world frames")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -330,14 +383,30 @@ def main() -> int:
             with torch.inference_mode():
                 odo.model(both[1:2], both[0:1])
 
-        # the random-cloud batch of train_net_torch.py (seed 0), first of its epoch
-        r = np.random.default_rng(0)
-        pts1 = r.normal(size=(TRAIN_BATCH, 8192, 3)).astype(np.float32) * 8
-        pose = se3.exp(torch.from_numpy((r.normal(size=(TRAIN_BATCH, 6)) * 0.05).astype(np.float32)))
-        batch = {"xyz1": pts1, "xyz2": se3.transform(pose, torch.from_numpy(pts1)).numpy(),
-                 "gt_params": se3.pose_to_params_quat(pose).numpy().astype(np.float32)}
-        cfg = tstate.TrainConfig(model=PWCLONetConfig(), total_steps=1000)
-        state = tstate.create_train_state(cfg, seed=0)
+        if args.batch == "world":
+            # the first batch of train_net_torch.py dataset=synthetic_world and
+            # its trainer's seeded state
+            import train_net_torch
+
+            with tempfile.TemporaryDirectory() as log_dir:
+                wcfg = train_net_torch.parse_cli(train_net_torch.Config, [
+                    "dataset=synthetic_world", "num_points=8192", "synthetic_frames=48",
+                    f"batch_size={TRAIN_BATCH}", "train_sequences=0", "eval_sequences=0",
+                    f"log_dir={log_dir}"])
+                batch = next(iter(train_net_torch.make_batch_fns(wcfg)[0]()))
+                trainer = train_net_torch._trainer(wcfg)
+            cfg, state = trainer.config.train, trainer.state
+        else:
+            # the random-cloud batch of train_net_torch.py (seed 0), first of its epoch
+            r = np.random.default_rng(0)
+            pts1 = r.normal(size=(TRAIN_BATCH, 8192, 3)).astype(np.float32) * 8
+            pose = se3.exp(torch.from_numpy(
+                (r.normal(size=(TRAIN_BATCH, 6)) * 0.05).astype(np.float32)))
+            batch = {"xyz1": pts1, "xyz2": se3.transform(pose, torch.from_numpy(pts1)).numpy(),
+                     "gt_params": se3.pose_to_params_quat(pose).numpy().astype(np.float32)}
+            cfg = tstate.TrainConfig(model=PWCLONetConfig(), total_steps=1000)
+            state = tstate.create_train_state(cfg, seed=0)
+        out["batch"] = args.batch
         fwd = recorded_calls(gather_targets(gather_mod), forward)
         step = recorded_calls(gather_targets(gather_mod),
                               lambda: tstate.loss_and_grads(cfg, state, batch))
@@ -363,6 +432,7 @@ def main() -> int:
             out["scatter_add_skewed"] = scatter_row(
                 gather_mod, (2 * TRAIN_BATCH, 2048, 32768, 19), 0,
                 torch.from_numpy(idx.astype(np.int32)).cuda(), args.reps, flush)
+            out["scatter_add_backend"] = backend_rows(gather_mod, args.reps, flush)
 
     fused = [kind for kind in ("attentive_aggregate", "mlp_maxpool") if kind in wanted]
     if fused:
