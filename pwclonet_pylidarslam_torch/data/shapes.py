@@ -25,6 +25,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from pwclonet_pylidarslam_torch.utils.timer import span
+
 
 def pc_normalize(pc: np.ndarray) -> np.ndarray:
     """Center on the centroid, scale into the unit sphere
@@ -398,13 +400,15 @@ def batches(
     for start in range(0, end, batch_size):
         idxs = order[start : start + batch_size]
         pts_list, lbl_list = [], []
-        for i in idxs:
-            pts, lbl = dataset[int(i)]
-            if augment and np.ndim(lbl) == 0:
-                pts = augment_cls(pts, rng or np.random.default_rng(int(i)))
-            pts_list.append(pts)
-            lbl_list.append(lbl)
-        yield {
-            "points": np.stack(pts_list).astype(np.float32),
-            "labels": np.asarray(lbl_list),
-        }
+        with span("data.collate"):
+            for i in idxs:
+                pts, lbl = dataset[int(i)]
+                if augment and np.ndim(lbl) == 0:
+                    pts = augment_cls(pts, rng or np.random.default_rng(int(i)))
+                pts_list.append(pts)
+                lbl_list.append(lbl)
+            batch = {
+                "points": np.stack(pts_list).astype(np.float32),
+                "labels": np.asarray(lbl_list),
+            }
+        yield batch

@@ -21,6 +21,7 @@ import torch
 
 from pwclonet_pylidarslam_torch.data.kitti import pose_to_params, random_augmentation
 from pwclonet_pylidarslam_torch.device import resolve_device
+from pwclonet_pylidarslam_torch.utils.timer import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -791,6 +792,7 @@ def cast_rigid_sweeps(
     return ranges_all, idx_all, caster.soa.roughness
 
 
+@span("data.filter")
 def filter_scan_sensor_frame(
     pc: np.ndarray,
     num_points: int,
@@ -801,6 +803,7 @@ def filter_scan_sensor_frame(
     """Ground/range filter + resample to exactly ``num_points``: the
     deep-odometry input filter in the synthetic sensor frame (z up, ground
     plane at −1.7 m). Padding rows (zeros) never survive."""
+    count("data.points_in", len(pc))
     valid = np.linalg.norm(pc, axis=-1) > 1e-3
     is_ground = pc[:, 2] < ground_z
     keep = valid & ~is_ground & (np.abs(pc[:, 0]) < near) & (np.abs(pc[:, 1]) < near)
@@ -846,6 +849,7 @@ class SyntheticPairDataset:
     def __len__(self):
         return len(self._index)
 
+    @span("data.pair")
     def __getitem__(self, index: int) -> dict:
         s, i2 = self._index[index]
         scans, poses = self.sequences[s]
@@ -857,10 +861,11 @@ class SyntheticPairDataset:
         # rel maps current-frame coords into previous-frame coords
         t_rel = np.linalg.inv(poses[i1]) @ poses[i2]
         if self.augment:
-            t_aug = random_augmentation(self._rng)
-            hom = np.concatenate([p_cur, np.ones((self.num_points, 1))], -1)
-            p_cur = (t_aug @ hom.T).T[:, :3].astype(np.float32)
-            t_gt = t_rel @ np.linalg.inv(t_aug)
+            with span("data.augment"):
+                t_aug = random_augmentation(self._rng)
+                hom = np.concatenate([p_cur, np.ones((self.num_points, 1))], -1)
+                p_cur = (t_aug @ hom.T).T[:, :3].astype(np.float32)
+                t_gt = t_rel @ np.linalg.inv(t_aug)
         else:
             t_gt = t_rel
         return {"xyz1": p_cur, "xyz2": p_prev, "gt_params": pose_to_params(t_gt)}
@@ -871,7 +876,9 @@ class SyntheticPairDataset:
             (np.random.default_rng(seed) if seed is not None else self._rng).shuffle(order)
         for start in range(0, len(order) - batch_size + 1, batch_size):
             items = [self[int(i)] for i in order[start : start + batch_size]]
-            yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+            with span("data.collate"):
+                batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+            yield batch
 
 
 def generate_sequence(

@@ -24,6 +24,7 @@ from torch import nn
 from pwclonet_pylidarslam_torch.device import resolve_device
 from pwclonet_pylidarslam_torch.models.layers import PointMLP, dropout
 from pwclonet_pylidarslam_torch.models.pointnet2 import FeaturePropagation, SetConvMSG
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 
 @dataclass(frozen=True)
@@ -170,14 +171,17 @@ class PointNet2Segmentation(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         kw = dict(train=train, bn_momentum=bn_momentum)
         xyzs, feats = [xyz], [features]
-        for i in range(self.n_stages):
-            xyz, features = getattr(self, f"SetConvMSG_{i}")(xyz, features, **kw)
-            xyzs.append(xyz)
-            feats.append(features)
+        with span("model.encoder"):
+            for i in range(self.n_stages):
+                xyz, features = getattr(self, f"SetConvMSG_{i}")(xyz, features, **kw)
+                xyzs.append(xyz)
+                feats.append(features)
         x = feats[-1]
-        for j, level in enumerate(range(self.n_stages - 1, -1, -1)):
-            x = getattr(self, f"FeaturePropagation_{j}")(
-                xyzs[level], xyzs[level + 1], feats[level], x, **kw)
-        x = self.PointMLP_0(x, **kw)
-        x = dropout(x, self.dropout, train, generator)
-        return self.Dense_0(x)
+        with span("model.decoder"):
+            for j, level in enumerate(range(self.n_stages - 1, -1, -1)):
+                x = getattr(self, f"FeaturePropagation_{j}")(
+                    xyzs[level], xyzs[level + 1], feats[level], x, **kw)
+        with span("model.head"):
+            x = self.PointMLP_0(x, **kw)
+            x = dropout(x, self.dropout, train, generator)
+            return self.Dense_0(x)

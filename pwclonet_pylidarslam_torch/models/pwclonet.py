@@ -44,6 +44,7 @@ from pwclonet_pylidarslam_torch.models.layers import (
     dropout,
 )
 from pwclonet_pylidarslam_torch.models.pointnet2 import SetConv, SetUpConv
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 _EMB = 64  # flow-embedding / mask width of the reference channel plan
 _COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -256,26 +257,29 @@ class PWCLONet(nn.Module):
         if train:
             discard_batch_stats(self)  # of an earlier forward that was never committed
         kw = dict(train=train, bn_momentum=bn_momentum)
-        f1, f2 = self.pyramid(xyz1, xyz2, **kw)
+        with span("model.pyramid"):
+            f1, f2 = self.pyramid(xyz1, xyz2, **kw)
         (x1_1, p1_1), (x1_2, p1_2), (x1_3, p1_3), (x1_4, p1_4) = f1
         (x2_1, p2_1), (x2_2, p2_2), (x2_3, p2_3), _ = f2
 
-        # attentive cost volume at level 3 + flow feature encoding → level 4
-        flow_emb = self.CostVolume_0(x1_3, p1_3, x2_3, p2_3, **kw)
-        x1_4, emb4 = self.SetConv_4(x1_3, flow_emb, **kw)
+        with span("model.coarse"):
+            # attentive cost volume at level 3 + flow feature encoding → level 4
+            flow_emb = self.CostVolume_0(x1_3, p1_3, x2_3, p2_3, **kw)
+            x1_4, emb4 = self.SetConv_4(x1_3, flow_emb, **kw)
 
-        # level-4 embedding mask + coarse pose
-        mask4 = self.FlowPredictor_0(p1_4, emb4, **kw)
-        w4 = torch.softmax(mask4, dim=1)
-        q4, t4 = self.PoseCalculator_0(emb4, w4, train=train, generator=generator)
+            # level-4 embedding mask + coarse pose
+            mask4 = self.FlowPredictor_0(p1_4, emb4, **kw)
+            w4 = torch.softmax(mask4, dim=1)
+            q4, t4 = self.PoseCalculator_0(emb4, w4, train=train, generator=generator)
 
-        # cascaded warp-refinement: level 3 → 2 → 1
-        q3, t3, emb3, mask3 = self.PoseWarpRefinement_0(
-            x1_3, p1_3, x2_3, p2_3, x1_4, emb4, mask4, q4, t4, generator=generator, **kw)
-        q2, t2, emb2, mask2 = self.PoseWarpRefinement_1(
-            x1_2, p1_2, x2_2, p2_2, x1_3, emb3, mask3, q3, t3, generator=generator, **kw)
-        q1, t1, _, mask1 = self.PoseWarpRefinement_2(
-            x1_1, p1_1, x2_1, p2_1, x1_2, emb2, mask2, q2, t2, generator=generator, **kw)
+        with span("model.refine"):
+            # cascaded warp-refinement: level 3 → 2 → 1
+            q3, t3, emb3, mask3 = self.PoseWarpRefinement_0(
+                x1_3, p1_3, x2_3, p2_3, x1_4, emb4, mask4, q4, t4, generator=generator, **kw)
+            q2, t2, emb2, mask2 = self.PoseWarpRefinement_1(
+                x1_2, p1_2, x2_2, p2_2, x1_3, emb3, mask3, q3, t3, generator=generator, **kw)
+            q1, t1, _, mask1 = self.PoseWarpRefinement_2(
+                x1_1, p1_1, x2_1, p2_1, x1_2, emb2, mask2, q2, t2, generator=generator, **kw)
 
         def pack(q, t):
             qn = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + 1e-10) + 1e-10)

@@ -18,8 +18,10 @@ from typing import Optional
 import torch
 
 from pwclonet_pylidarslam_torch.ops.knn import pairwise_sqdist
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 
+@span("op.ball_query")
 @torch.no_grad()
 def ball_query(
     centers: torch.Tensor,

@@ -28,6 +28,7 @@ import torch
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops.mlp import MAX_LAYERS, check_stack
 from pwclonet_pylidarslam_torch.ops.tf32x3 import Stack, packed_fragments, sm_count, tile_centres
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 ENC_WIDTH = 10
 
@@ -101,6 +102,7 @@ def _attentive_aggregate_cuda(center_xyz, grouped_xyz, center_feat, grouped_feat
     return out
 
 
+@span("op.attentive_aggregate")
 def attentive_aggregate(center_xyz: torch.Tensor, grouped_xyz: torch.Tensor,
                         center_feat: torch.Tensor, grouped_feat: torch.Tensor, enc_wb: Stack,
                         emb_wb: Optional[Stack], att_wb: Stack,

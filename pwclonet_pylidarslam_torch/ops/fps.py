@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 _PAD_NORM_SQ = 1e-3
 _BIG = 1e10
@@ -87,6 +88,7 @@ def _furthest_point_sample_cuda(
     return out
 
 
+@span("op.fps")
 @torch.no_grad()
 def furthest_point_sample(
     points: torch.Tensor, npoint: int, mask: Optional[torch.Tensor] = None

@@ -5,11 +5,11 @@ Counterpart of ``pwclonet_pylidarslam_tpu/ops/gather.py``. On a CUDA tensor
 :func:`gather_points` launches the kernel of ``csrc/gather.cu``, and its
 gradient the deterministic scatter-add of ``csrc/scatter_add.cu``
 (:func:`scatter_add_rows`); on a CPU tensor it runs
-:func:`gather_points_plain` under PyTorch's own autograd. The gather is a
-bit-exact copy of the indexed rows. The scatter-add is a plan (the index
-inverted) and a sum; :class:`ScatterPlan` keeps the plan for callers that
-sum many update tensors over one index. Indices are int32, assumed in range as
-in the reference, and get no gradient.
+:func:`gather_points_plain`, and its gradient the plain scatter-add. The
+gather is a bit-exact copy of the indexed rows. The scatter-add is a plan
+(the index inverted) and a sum; :class:`ScatterPlan` keeps the plan for
+callers that sum many update tensors over one index. Indices are int32,
+assumed in range as in the reference, and get no gradient.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 
 def gather_points_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -88,6 +89,7 @@ class ScatterPlan:
     contiguous float32 updates ``(B, M, C)`` on the same device and raises
     on anything else."""
 
+    @span("op.scatter_plan")
     def __init__(self, idx: torch.Tensor, n: int):
         if n < 1:
             raise ValueError(f"n must be >= 1, got {n}")
@@ -108,6 +110,7 @@ class ScatterPlan:
                 _cuda.stream_of(idx),
             )
 
+    @span("op.scatter_sum")
     def sum(self, updates: torch.Tensor) -> torch.Tensor:
         """``out[b, j, :] = Σ_{m: idx[b, m] = j} updates[b, m, :]``, the rows
         of one ``j`` added in ascending ``m``."""
@@ -149,17 +152,20 @@ def scatter_add_rows(updates: torch.Tensor, idx: torch.Tensor, n: int) -> torch.
     else. Two calls on the same inputs agree to the bit. To sum many update
     tensors over one index, build one :class:`ScatterPlan`."""
     if updates.device.type == "cpu":
-        return scatter_add_rows_plain(updates, idx, n)
+        return ScatterPlan(idx, n).sum(updates)
     return _scatter_add_rows_cuda(updates, idx, n)
 
 
 class _GatherRows(torch.autograd.Function):
-    """The gather kernel with the scatter-add kernel as its backward."""
+    """The gather with the scatter-add as its backward: the kernels on CUDA
+    tensors, their plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(idx)
         ctx.n = src.shape[1]
+        if src.device.type == "cpu":
+            return gather_points_plain(src, idx)
         return _gather_points_cuda(src, idx)
 
     @staticmethod
@@ -168,17 +174,16 @@ class _GatherRows(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         # an incoming gradient is often a view (a slice of a concatenation):
         # the kernel takes contiguous rows
-        return _scatter_add_rows_cuda(grad.contiguous(), idx, ctx.n), None
+        return scatter_add_rows(grad.contiguous(), idx, ctx.n), None
 
 
+@span("op.gather")
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``points (B, N, C)`` gathered by ``idx (B, M)`` → ``(B, M, C)``:
     ``out[b, m, :] = points[b, idx[b, m], :]``. CPU tensors take the plain
     version; CUDA tensors take the kernel, which raises on a dtype or shape
-    it does not take, and whose gradient with respect to ``points`` is
+    it does not take. The gradient with respect to ``points`` is
     :func:`scatter_add_rows` of the incoming gradient."""
-    if points.device.type == "cpu":
-        return gather_points_plain(points, idx)
     return _GatherRows.apply(points.contiguous(), idx.contiguous())
 
 

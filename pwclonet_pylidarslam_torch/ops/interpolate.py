@@ -14,8 +14,10 @@ import torch
 
 from pwclonet_pylidarslam_torch.ops.gather import group_points
 from pwclonet_pylidarslam_torch.ops.knn import knn
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 
+@span("op.three_nn")
 def three_nn(
     unknown: torch.Tensor,
     known: torch.Tensor,
@@ -26,6 +28,7 @@ def three_nn(
     return knn(unknown, known, 3, ref_mask=known_mask)
 
 
+@span("op.three_interpolate")
 def three_interpolate(
     features: torch.Tensor,
     idx: torch.Tensor,

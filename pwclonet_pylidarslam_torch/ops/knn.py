@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 MAX_K_CUDA = 32  # the kernel's sorted list: one key a lane of a warp
 BIG = 1e10  # the distance of a masked reference point
@@ -131,6 +132,7 @@ def _knn_cuda(
     return dists, idx
 
 
+@span("op.knn")
 @torch.no_grad()
 def knn(
     query: torch.Tensor, ref: torch.Tensor, k: int,

@@ -22,6 +22,7 @@ import torch
 
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops.tf32x3 import Stack, mlp_tile, packed_fragments, sm_count
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 MAX_LAYERS = 3  # layers per stack the kernels take
 
@@ -101,6 +102,7 @@ def _mlp_maxpool_cuda(x: torch.Tensor, wb: Stack,
     return out
 
 
+@span("op.mlp_maxpool")
 def mlp_maxpool(x: torch.Tensor, wb: Stack) -> torch.Tensor:
     """``x (B, S, K, Cin)`` → ``(B, S, Cout)``, with ``wb`` the stack's
     ``(weights, biases)``, BN already folded (``PointMLP.folded()``). CPU

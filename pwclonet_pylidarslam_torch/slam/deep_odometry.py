@@ -22,6 +22,7 @@ from pwclonet_pylidarslam_torch.device import resolve_device
 from pwclonet_pylidarslam_torch.evaluation.metrics import compute_relative_poses
 from pwclonet_pylidarslam_torch.models import PWCLONet, PWCLONetConfig, load_flax_variables
 from pwclonet_pylidarslam_torch.models.posenet import PoseResNet, PoseResNetConfig, conv_precision
+from pwclonet_pylidarslam_torch.utils.timer import count, span
 
 
 def _load_variables(model: torch.nn.Module, variables, device: torch.device) -> None:
@@ -73,6 +74,7 @@ class PWCLONetOdometry:
         self.poses = []
 
     def _prepare(self, points: np.ndarray) -> np.ndarray:
+        count("odometry.points_in", len(points))
         n = self.config.num_points
         pts = points[np.linalg.norm(points, axis=-1) > 1e-6]
         if len(pts) >= n:
@@ -87,29 +89,39 @@ class PWCLONetOdometry:
     def _relative_poses(self, cur: np.ndarray, prev: np.ndarray) -> np.ndarray:
         """Finest-level relative poses ``(B, 4, 4)`` float64 of pairs
         ``cur (B, N, 3)`` (xyz1) against ``prev (B, N, 3)`` (xyz2)."""
-        x1 = torch.from_numpy(cur).to(self.device)
-        x2 = torch.from_numpy(prev).to(self.device)
-        params, _ = self.model(x1, x2)
-        return se3.params_to_pose_quat(params[:, 0]).cpu().numpy().astype(np.float64)
+        with span("odometry.h2d"):
+            x1 = torch.from_numpy(cur).to(self.device)
+            x2 = torch.from_numpy(prev).to(self.device)
+            count("h2d.bytes", cur.nbytes + prev.nbytes)
+        with span("odometry.forward"):
+            params, _ = self.model(x1, x2)
+            poses = se3.params_to_pose_quat(params[:, 0])
+        with span("odometry.readback"):
+            return poses.cpu().numpy().astype(np.float64)
 
+    @span("odometry.call")
     def process_next_frame(self, points: np.ndarray) -> np.ndarray:
-        scan = self._prepare(points)
+        with span("odometry.prepare"):
+            scan = self._prepare(points)
         if self._prev_scan is None:
             self._prev_scan = scan
             self.poses.append(np.eye(4))
             return self.state_pose
         # xyz1 = current, xyz2 = previous
         rel = self._relative_poses(scan[None], self._prev_scan[None])[0]
-        self.state_pose = self.state_pose @ rel
-        self._prev_scan = scan
-        self.poses.append(self.state_pose.copy())
+        with span("odometry.chain"):
+            self.state_pose = self.state_pose @ rel
+            self._prev_scan = scan
+            self.poses.append(self.state_pose.copy())
         return self.state_pose
 
+    @span("odometry.call")
     def process_sequence(self, scans: np.ndarray) -> np.ndarray:
         """All consecutive pairs of ``scans (T, N, 3)`` in one batched
         forward. Returns ``(T, 4, 4)`` absolute poses of the newly processed
         frames."""
-        prepared = np.stack([self._prepare(s) for s in scans])
+        with span("odometry.prepare"):
+            prepared = np.stack([self._prepare(s) for s in scans])
         first_poses = []
         if self._prev_scan is None:
             prev = prepared[:-1]
@@ -119,16 +131,17 @@ class PWCLONetOdometry:
             prev = np.concatenate([self._prev_scan[None], prepared[:-1]])
             cur = prepared
         rels = self._relative_poses(cur, prev) if len(cur) else np.zeros((0, 4, 4))
-        out = []
-        for _ in first_poses:
-            self.poses.append(self.state_pose.copy())
-            out.append(self.state_pose.copy())
-        for rel in rels:
-            self.state_pose = self.state_pose @ rel
-            self.poses.append(self.state_pose.copy())
-            out.append(self.state_pose.copy())
-        self._prev_scan = prepared[-1]
-        return np.stack(out)
+        with span("odometry.chain"):
+            out = []
+            for _ in first_poses:
+                self.poses.append(self.state_pose.copy())
+                out.append(self.state_pose.copy())
+            for rel in rels:
+                self.state_pose = self.state_pose @ rel
+                self.poses.append(self.state_pose.copy())
+                out.append(self.state_pose.copy())
+            self._prev_scan = prepared[-1]
+            return np.stack(out)
 
     def absolute_poses(self) -> np.ndarray:
         return np.stack(self.poses)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from pwclonet_pylidarslam_torch.models.layers import commit_batch_stats
 from pwclonet_pylidarslam_torch.train.state import _to_device
+from pwclonet_pylidarslam_torch.utils.timer import count, span
 
 LR_CLIP = 1e-5
 BNM_CLIP = 1e-2
@@ -110,18 +111,22 @@ def cls_seg_loss_and_grads(config: ClsSegTrainConfig, state: ClsSegTrainState, b
     ``grads`` in the order of ``model.parameters()`` (zeros for one the loss
     does not reach). The new running statistics are left pending and the
     generator has drawn the dropout masks; nothing else changes."""
-    batch = _to_device(batch, state.device)
-    xyz, features = split_inputs(batch["points"])
-    logits = state.model(xyz, features, train=True,
-                         bn_momentum=bn_momentum_at(config, state.step * config.batch_size),
-                         generator=state.generator)
-    loss, acc = ce_and_accuracy(logits, batch["labels"])
+    with span("train.h2d"):
+        batch = _to_device(batch, state.device)
+    with span("train.forward"):
+        xyz, features = split_inputs(batch["points"])
+        logits = state.model(xyz, features, train=True,
+                             bn_momentum=bn_momentum_at(config, state.step * config.batch_size),
+                             generator=state.generator)
+        loss, acc = ce_and_accuracy(logits, batch["labels"])
     params = list(state.model.parameters())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return loss.detach(), acc, grads
 
 
+@span("train.step")
 def cls_seg_train_step(config: ClsSegTrainConfig, state: ClsSegTrainState,
                        batch: Mapping) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``state``, in place. ``batch``: ``{"points":
@@ -130,15 +135,17 @@ def cls_seg_train_step(config: ClsSegTrainConfig, state: ClsSegTrainState,
     ``bn_momentum`` of the step."""
     examples = state.step * config.batch_size
     loss, acc, grads = cls_seg_loss_and_grads(config, state, batch)
-    for p, g in zip(state.model.parameters(), grads):
-        p.grad = g
     lr = lr_at(config, examples)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    commit_batch_stats(state.model)
+    with span("train.optimizer"):
+        for p, g in zip(state.model.parameters(), grads):
+            p.grad = g
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        commit_batch_stats(state.model)
     state.step += 1
+    count("train.steps")
     return {"loss": loss, "accuracy": acc, "lr": lr,
             "bn_momentum": bn_momentum_at(config, examples)}
 

@@ -36,6 +36,7 @@ from pwclonet_pylidarslam_torch.train.losses import (
     init_loss_params,
     pwclonet_loss,
 )
+from pwclonet_pylidarslam_torch.utils.timer import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +214,9 @@ def create_train_state(config: TrainConfig, seed: int = 0,
 
 
 def _to_device(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    host = {k: torch.as_tensor(v) for k, v in batch.items()}
+    count("h2d.bytes", sum(t.nbytes for t in host.values()))
+    return {k: t.to(device) for k, t in host.items()}
 
 
 def loss_and_grads(
@@ -223,19 +226,23 @@ def loss_and_grads(
     ``grads`` keyed as :meth:`TrainState.trainable`. The new running
     statistics are left pending on the model and the state's generator has
     drawn the dropout masks; nothing else changes."""
-    batch = _to_device(batch, state.device)
-    pred, _aux = state.model(
-        batch["xyz1"], batch["xyz2"], train=True, bn_momentum=bn_momentum(config, state.step),
-        generator=state.generator,
-    )
-    loss, log = pwclonet_loss(state.loss_params, pred, batch["gt_params"], config.loss)
+    with span("train.h2d"):
+        batch = _to_device(batch, state.device)
+    with span("train.forward"):
+        pred, _aux = state.model(
+            batch["xyz1"], batch["xyz2"], train=True,
+            bn_momentum=bn_momentum(config, state.step), generator=state.generator,
+        )
+        loss, log = pwclonet_loss(state.loss_params, pred, batch["gt_params"], config.loss)
     named = state.trainable()
-    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
     grads = {name: torch.zeros_like(p) if g is None else g
              for (name, p), g in zip(named.items(), grads)}
     return loss.detach(), log, grads
 
 
+@span("train.step")
 def train_step(config: TrainConfig, state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``state``, in place. ``batch``: ``{"xyz1":
     (B,N,3), "xyz2": (B,N,3), "gt_params": (B,7)}`` (numpy or tensors) with
@@ -253,12 +260,14 @@ def apply_grads(config: TrainConfig, state: TrainState, loss: torch.Tensor,
     update from ``grads`` and the pending statistics committed, both only
     where ``loss`` is finite, and the step counted. Returns ``log`` with
     ``grad_norm`` and ``skipped_nonfinite``."""
-    finite = torch.isfinite(loss)
-    flat_grad = state.optimizer.update(list(grads.values()), apply=finite)
-    commit_batch_stats(state.model, keep=finite)
+    with span("train.optimizer"):
+        finite = torch.isfinite(loss)
+        flat_grad = state.optimizer.update(list(grads.values()), apply=finite)
+        commit_batch_stats(state.model, keep=finite)
+        log["grad_norm"] = torch.linalg.vector_norm(flat_grad)
+        log["skipped_nonfinite"] = torch.logical_not(finite)
     state.step += 1
-    log["grad_norm"] = torch.linalg.vector_norm(flat_grad)
-    log["skipped_nonfinite"] = torch.logical_not(finite)
+    count("train.steps")
     return log
 
 

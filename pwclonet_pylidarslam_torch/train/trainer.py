@@ -36,6 +36,7 @@ from pwclonet_pylidarslam_torch.train.state import (
     eval_step,
     train_steps,
 )
+from pwclonet_pylidarslam_torch.utils.timer import span
 
 
 @dataclasses.dataclass
@@ -194,9 +195,13 @@ class BaseTrainer:
             nonlocal skipped
             if not block:
                 return
-            stacked = {key: np.stack([np.asarray(b[key]) for b in block]) for key in block[0]}
-            # the block's one wait for the device
-            logs = {key: v.cpu().numpy() for key, v in self._train_steps(stacked).items()}
+            with span("train.block"):
+                with span("train.stack"):
+                    stacked = {key: np.stack([np.asarray(b[key]) for b in block])
+                               for key in block[0]}
+                out = self._train_steps(stacked)
+                with span("train.readback"):  # the block's one wait for the device
+                    logs = {key: v.cpu().numpy() for key, v in out.items()}
             epoch_logs.append(logs)
             for loss in logs["loss"]:
                 if np.isfinite(loss):

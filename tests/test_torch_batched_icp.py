@@ -176,29 +176,29 @@ def test_config_and_refusals():
 
 
 def test_timers_and_timed_call():
-    timers = ttimer.Timers()
-    out = []
-    for _ in range(3):
-        with timers.time("matmul", result=out):
-            out.append(torch.ones(64, 64) @ torch.ones(64, 64))
-    summary = timers.summary()
-    assert list(summary) == ["matmul"] and summary["matmul"] > 0
-    assert timers.durations["matmul"].count == 3
-    assert ttimer.Duration().average == 0.0
-    seconds, result = ttimer.timed_call(torch.add, torch.ones(3), torch.ones(3), n=4, warmup=2)
+    """The recorder's spans around a timed call: one span a call, warm-up
+    included, each closed after its result; and the call's mean seconds."""
+    add = ttimer.span("test.add")(torch.add)
+    with ttimer.recording() as rec:
+        seconds, result = ttimer.timed_call(add, torch.ones(3), torch.ones(3), n=4, warmup=2)
     assert seconds > 0 and torch.equal(result, torch.full((3,), 2.0))
+    assert [s[0] for s in rec.spans] == ["test.add"] * 6
+    assert all(s[1] is None and s[3] <= s[4] for s in rec.spans)
+    assert all(a[4] <= b[3] for a, b in zip(rec.spans, rec.spans[1:]))
 
 
 def test_profiler_trace_writes_a_trace(tmp_path):
     import json
 
     with ttimer.profiler_trace(str(tmp_path / "prof"), device="cpu") as prof:
-        torch.ones(32, 32) @ torch.ones(32, 32)
+        with ttimer.span("test.matmul"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
     assert prof is not None
     traces = list((tmp_path / "prof").glob("trace_*.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+    assert any(e.get("name") == "test.matmul" for e in events)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             with ttimer.profiler_trace(str(tmp_path / "card")):

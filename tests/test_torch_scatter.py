@@ -91,6 +91,22 @@ def test_gather_gradient_matches_jax_grad():
                                atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_cpu_gather_gradient_equals_torch_gathers(dtype):
+    """On the CPU the gather's gradient is the plain scatter-add through a
+    ``ScatterPlan``: to the bit what ``torch.gather``'s own backward gives,
+    since both add a row's updates in ascending m."""
+    b, n, m, c = 3, 1000, 8192, 19
+    gen = torch.Generator().manual_seed(4)
+    src = torch.randn(b, n, c, generator=gen).to(dtype).requires_grad_()
+    idx = torch.randint(0, n, (b, m), generator=gen, dtype=torch.int32)
+    upd = torch.randn(b, m, c, generator=gen).to(dtype)
+    (got,) = torch.autograd.grad(ops.gather_points(src, idx), src, upd)
+    plain = src.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(tgather.gather_points_plain(plain, idx), plain, upd)
+    assert torch.equal(got, want)
+
+
 def test_grouping_gradient_through_one_concatenated_gather():
     """``group_points_multi`` differentiates into each of its sources."""
     rng = np.random.default_rng(3)
