@@ -32,7 +32,11 @@ CUDA toolkit (``nvcc``). Phases, each of which must pass:
    inputs (a sequential loop over m, the order the kernel promises),
    bit-equal to a second launch, and within 1e-5 of the largest segment's sum of magnitudes
    of the plain version on the card (whose float atomics add in another
-   order);
+   order); the scan preparation's keep and take at the odometry cell's
+   shape (32 sweeps of 107-115k rows, rows at the origin and within a few
+   ulps of 1e-6, one scan under the 8,192 drawn) and on float64 sweeps:
+   kept rows and counts equal to the plain version's, drawn rows bit-exact,
+   the whole preparation equal to the plain one on the CPU;
 3. run the small config (256 points) on the card and on the CPU with the
    same seeded weights and inputs, and with ``fused_eval=True`` on the card
    against the unfused card run: pose params within atol 1e-4 / rtol 1e-3;
@@ -362,6 +366,7 @@ from pwclonet_pylidarslam_torch.models.layers import PointMLP  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import _cuda  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import fps as tfps  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import gather as tgather  # noqa: E402
+from pwclonet_pylidarslam_torch.ops import prepare as tprepare  # noqa: E402
 from pwclonet_pylidarslam_torch.ops import costvolume as cv_mod  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain  # noqa: E402
 from pwclonet_pylidarslam_torch.ops.knn import (  # noqa: E402
@@ -434,11 +439,13 @@ TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores, published
 # with fused_eval, mlp_maxpool: 1 per pyramid level and frame (8), 1 for the
 # flow-embedding SetConv and 1 per SetUpConv x 6; attentive_aggregate: 2 per
 # cost volume x 4.
+# A forward launches none of the scan preparation's kernels: each odometry
+# call launches one keep and one take (odometry_launches).
 LAUNCHES_PER_FORWARD = {
     False: {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 0, "mlp_maxpool": 0,
-            "attentive_aggregate": 0},
+            "attentive_aggregate": 0, "prepare_keep": 0, "prepare_take": 0},
     True: {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 0, "mlp_maxpool": 15,
-           "attentive_aggregate": 8},
+           "attentive_aggregate": 8, "prepare_keep": 0, "prepare_take": 0},
 }
 # a train step takes the unfused graph. Of its 24 gathers, 18 have a source
 # that requires grad and an output that the loss reads: the groupings of the
@@ -446,7 +453,16 @@ LAUNCHES_PER_FORWARD = {
 # SetConv, 2 per cost volume x 4 and 1 per SetUpConv x 6. Each runs one
 # scatter-add in the backward: two launches, a plan of its index and a sum.
 LAUNCHES_PER_TRAIN_STEP = {"fps": 5, "knn": 19, "gather": 24, "scatter_add": 36,
-                           "mlp_maxpool": 0, "attentive_aggregate": 0}
+                           "mlp_maxpool": 0, "attentive_aggregate": 0, "prepare_keep": 0,
+                           "prepare_take": 0}
+
+
+def odometry_launches(forwards: int, calls: int, fused: bool) -> dict:
+    """Launches of ``calls`` odometry calls (``process_next_frame`` or
+    ``process_sequence``) that ran ``forwards`` forwards."""
+    out = {name: n * forwards for name, n in LAUNCHES_PER_FORWARD[fused].items()}
+    out["prepare_keep"] = out["prepare_take"] = calls
+    return out
 # (S, K, Cin, widths) of the fused MLP's calls in a full-width fused forward
 # at B=1, as tools/time_point_kernels.py records them; the one with the most
 # work first
@@ -477,6 +493,12 @@ KERNELS = {
                     "pwclonet_pylidarslam_tpu/ops/pallas/mlp_kernel.py:61"),
     "attentive_aggregate": ("pwclonet_pylidarslam_torch/csrc/attentive_aggregate.cu",
                             "pwclonet_pylidarslam_tpu/ops/pallas/costvolume_kernel.py:122"),
+    # the scan preparation's two kernels replace no TPU kernel: the
+    # reference prepares each scan in numpy on the host
+    "prepare_keep": ("pwclonet_pylidarslam_torch/csrc/prepare.cu",
+                     "pwclonet_pylidarslam_tpu/slam/deep_odometry.py:54"),
+    "prepare_take": ("pwclonet_pylidarslam_torch/csrc/prepare.cu",
+                     "pwclonet_pylidarslam_tpu/slam/deep_odometry.py:54"),
 }
 N_FRAMES = 10  # corridor sequence: 9 pairs one by one, then 9 in one batch
 N_FRAMES_UNFUSED = 4  # the unfused path runs over the first frames only
@@ -896,6 +918,81 @@ def fused_kernel_cases() -> dict:
     return {"mlp_maxpool": mlp, "attentive_aggregate": aggregate}
 
 
+def prepare_chunk(rng: np.random.Generator, sweeps: int, dtype=np.float32) -> list:
+    """The odometry cell's chunk: ``sweeps`` scans of 107-115k rows, every
+    third with 8 % of its rows at the origin, each with 2,000 rows whose
+    norms lie within a few ulps of 1e-6 either side; the last scan has 6,000
+    rows away from the origin, under the 8,192 drawn (the padding draw)."""
+    ulp = 2.0 ** -23 if dtype == np.float32 else 2.0 ** -52
+    scans = []
+    for b, hits in enumerate(rng.integers(107_000, 115_001, sweeps)):
+        scan = rng.normal(size=(int(hits), 3)) * 20
+        if b % 3 == 0:
+            scan[rng.random(len(scan)) < 0.08] = 0.0
+        d = rng.normal(size=(2000, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        scan[rng.choice(len(scan), 2000, replace=False)] = d * (
+            1e-6 * (1.0 + rng.integers(-6, 7, size=(2000, 1)) * ulp))
+        scans.append(scan.astype(dtype))
+    scans[-1][6000:] = 0.0
+    return scans
+
+
+def prepare_case(scans: list, n: int, label: str) -> dict:
+    """The keep and take kernels against their plain versions on the card,
+    to the bit, and the whole preparation against the plain one on the CPU;
+    one row a kernel, timed, with its byte bound."""
+    rows_cpu = torch.from_numpy(np.concatenate(scans))
+    offsets_cpu = torch.from_numpy(np.cumsum([0] + [len(s) for s in scans]))
+    rows, offsets = rows_cpu.cuda(), offsets_cpu.cuda()
+    t, hits = len(scans), len(rows)
+    keep, counts = tprepare.keep_rows(rows, offsets)
+    plain_keep, plain_counts = tprepare.keep_rows_plain(rows, offsets)
+    counts = counts.tolist()
+    same = counts == plain_counts.tolist() and all(
+        torch.equal(keep[lo: lo + c], plain_keep[lo: lo + c])
+        for lo, c in zip(offsets_cpu.tolist(), counts))
+    shape = f"T={t} R={hits} n={n} {rows.dtype}".replace("torch.", "")
+    check(same, f"prepare_keep {label} {shape}: counts and kept rows equal to plain")
+    padded = sum(c < n for c in counts)
+    check(padded == 1, f"prepare {label}: one scan takes the padding draw ({padded})")
+    idx = torch.from_numpy(np.stack([tprepare.draw(c, n) for c in counts]).astype(np.int32)).cuda()
+    out = tprepare.take_rows(rows, offsets, keep, idx)
+    plain = tprepare.take_rows_plain(rows, offsets, plain_keep, idx)
+    take_err = (out - plain).abs().max().item()
+    check(torch.equal(out, plain), f"prepare_take {label} {shape}: bit-exact to plain")
+    whole = tprepare.prepare(rows, offsets, n).cpu()
+    check(torch.equal(whole, tprepare.prepare(rows_cpu, offsets_cpu, n)),
+          f"prepare {label} {shape}: the card's scans equal the plain preparation's on the CPU")
+    kept = sum(counts)
+    keep_bytes = rows.element_size() * 3 * hits + 4 * kept + 8 * (t + 1) + 4 * t
+    take_bytes = t * n * (4 + 4 + rows.element_size() * 3 + 12) + 8 * (t + 1)
+    keep_bound, keep_by = bound_ms(keep_bytes, 0.0)
+    take_bound, take_by = bound_ms(take_bytes, 0.0)
+    return {
+        "prepare_keep": {
+            "shape": shape, "max_abs_err": 0.0, "bound_ms": keep_bound, "bound_by": keep_by,
+            "bytes": keep_bytes, "kept": kept,
+            **kernel_times(lambda: tprepare.keep_rows(rows, offsets),
+                           lambda: tprepare.keep_rows_plain(rows, offsets), None, 20, 2)},
+        "prepare_take": {
+            "shape": shape, "max_abs_err": take_err, "bound_ms": take_bound, "bound_by": take_by,
+            "bytes": take_bytes,
+            **kernel_times(lambda: tprepare.take_rows(rows, offsets, keep, idx, out=out),
+                           lambda: tprepare.take_rows_plain(rows, offsets, keep, idx), None,
+                           50, 20)},
+    }
+
+
+def prepare_cases() -> dict:
+    """The scan preparation's kernels at the odometry cell's shape (32
+    sweeps, 8,192 drawn), then on a float64 chunk of 4 sweeps."""
+    rng = np.random.default_rng(22)
+    cases = [prepare_case(prepare_chunk(rng, 32), 8192, "the odometry cell's chunk"),
+             prepare_case(prepare_chunk(rng, 4, np.float64), 8192, "float64 sweeps")]
+    return {name: [c[name] for c in cases] for name in ("prepare_keep", "prepare_take")}
+
+
 def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) -> dict:
     """``scan``/``scan2``: two prepared full-width frames ``(1, 8192, 3)``;
     ``frames``: eight of them, for the train step's gather and scatter-add
@@ -961,6 +1058,7 @@ def kernel_phase(scan: torch.Tensor, scan2: torch.Tensor, frames: torch.Tensor) 
         torch.randn(2 * TRAIN_BATCH, 2048, 19, device=scan.device, generator=gen), grouping))
     cases["scatter_add"] = scatter_cases(t1, t2)
     cases.update(fused_kernel_cases())
+    cases.update(prepare_cases())
     return cases, variants
 
 
@@ -1126,12 +1224,14 @@ def main_path_phase(odo: PWCLONetOdometry, scans: np.ndarray) -> dict:
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
     forwards = (n_frames - 1) + 1  # T-1 pairs one by one, then one batched forward
-    for name, per_fwd in LAUNCHES_PER_FORWARD[fused].items():
-        if per_fwd:
+    # every frame's call prepares its scan, then one call prepares them all
+    want = odometry_launches(forwards, n_frames + 1, fused)
+    for name, n in want.items():
+        if n:
             check(counts[name] > 0,
                   f"{label} main path launched the {name} kernel ({counts[name]} times)")
-        check(counts[name] == per_fwd * forwards,
-              f"{label} {name}: {per_fwd} launches per forward x {forwards} forwards")
+        check(counts[name] == n, f"{label} {name}: {n} launches ({forwards} forwards, "
+                                 f"{n_frames + 1} calls)")
     check(per_frame.shape == batched.shape == (n_frames, 4, 4), f"{label} pose shapes (T, 4, 4)")
     check(is_se3(per_frame) and is_se3(batched), f"{label} poses are finite SE(3)")
     # reported, not held to a bound: the two batchings round the matmuls
@@ -1166,11 +1266,9 @@ def timing_phase(odos: dict, scans: np.ndarray) -> dict:
     are timed in turns (unfused, fused, fused, unfused) so that both see the
     same card and host; every other time is taken per configuration."""
     first = next(iter(odos.values()))
-    prepared = np.stack([first._prepare(s) for s in scans])
-    x1 = torch.from_numpy(prepared[1:2]).cuda()
-    x2 = torch.from_numpy(prepared[0:1]).cuda()
-    xb1 = torch.from_numpy(prepared[1:]).cuda()
-    xb2 = torch.from_numpy(prepared[:-1]).cuda()
+    prepared = first._prepare(scans)
+    x1, x2 = prepared[1:2], prepared[0:1]
+    xb1, xb2 = prepared[1:], prepared[:-1]
     pairs = scans.shape[0] - 1
     fwd_ms = {label: [] for label in odos}
     with torch.inference_mode():
@@ -1212,9 +1310,8 @@ def profile_forward(label: str, odo: PWCLONetOdometry, scans: np.ndarray) -> dic
     device time by kernel, the count of device launches and the share of the
     span from the first kernel's start to the last one's end in which no
     kernel ran (with the profiler's own host overhead in it)."""
-    prepared = np.stack([odo._prepare(s) for s in scans[:2]])
-    x1 = torch.from_numpy(prepared[1:2]).cuda()
-    x2 = torch.from_numpy(prepared[0:1]).cuda()
+    prepared = odo._prepare(scans[:2])
+    x1, x2 = prepared[1:2], prepared[0:1]
 
     def forward():
         with torch.inference_mode():
@@ -1356,7 +1453,7 @@ def summarize_device_events(device: list) -> dict:
             scatter[short] = {"launches": was["launches"] + n, "ms": was["ms"] + ms}
     ours = {name: sum(ms for k, (ms, _) in by_name.items()
                       if (scatter_kernel(k) is not None if name == "scatter_add"
-                          else f"{name}_kernel" in k))
+                          else f"{name.removeprefix('prepare_')}_kernel" in k))
             for name in KERNELS}
     return {
         "device_ms": busy_ms, "span_ms": span_ms, "idle_share": 1.0 - busy_ms / span_ms,
@@ -1853,7 +1950,7 @@ def expected_slam_launches(slam, forwards: int, fused: bool) -> dict:
     scatter-add plan an optimization and a sum for each accumulation (2 a
     Gauss-Newton iteration, 1 a CG iteration launched, from
     :func:`cg_launches`)."""
-    out = {name: n * forwards for name, n in LAUNCHES_PER_FORWARD[fused].items()}
+    out = odometry_launches(forwards, forwards + 1 if forwards else 0, fused)
     refine = slam.loop_closure.stats.refinements * slam.loop_closure.config.icp_iterations
     out["knn"] += refine
     out["gather"] += refine
@@ -2129,7 +2226,7 @@ def slam_cli_drive(ckpt_dir: str, out_dir: str) -> dict:
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
     forwards = SLAM_FRAMES - 1
-    expected = {name: n * forwards for name, n in LAUNCHES_PER_FORWARD[True].items()}
+    expected = odometry_launches(forwards, SLAM_FRAMES, True)
     check(rc == 0, "run_slam_torch.py config=kitti_pwclonet_backend exits 0")
     check(counts == expected, f"run_slam_torch.py: launches {counts} are the fused front end's "
           f"per-frame counts x {forwards} forwards")
@@ -3238,7 +3335,7 @@ def fused_test_drive(args: list, log_dir: str, frames: int, label: str,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _cuda.launch_counts()
-    want = {k: (frames - 1) * v for k, v in LAUNCHES_PER_FORWARD[True].items()}
+    want = odometry_launches(frames - 1, frames, True)
     check(rc == 0 and counts == want,
           f"{label}: do_test fused over {frames} frames launched {counts}")
     test_dir = Path(log_dir, "test")
@@ -3254,7 +3351,7 @@ def fused_test_drive(args: list, log_dir: str, frames: int, label: str,
     odo = PWCLONetOdometry(trainer.state.state_dict(), DeepOdometryConfig(
         model=trainer.config.train.model, num_points=cfg.num_points))
     seq = train_net_torch.make_test_sequence(cfg, 0)
-    x1, x2 = (torch.from_numpy(odo._prepare(seq.scan(i)))[None].cuda() for i in (1, 0))
+    x2, x1 = odo._prepare([seq.scan(0), seq.scan(1)]).split(1)
 
     def forward():
         with torch.inference_mode():
@@ -4087,7 +4184,7 @@ def kitti360_drives(root: str, layout: dict, work: str) -> dict:
         rc = run_slam_torch.main(argv)
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
-    want = {k: (DATASET_FRAMES - 1) * v for k, v in LAUNCHES_PER_FORWARD[True].items()}
+    want = odometry_launches(DATASET_FRAMES - 1, DATASET_FRAMES, True)
     est = read_poses_txt(str(Path(run_dir, "00.poses.txt")))
     check(rc == 0 and counts == want and est.shape == (DATASET_FRAMES, 4, 4) and is_se3(est)
           and Path(run_dir, "metrics.yaml").exists(),
@@ -4323,8 +4420,7 @@ def main() -> int:
     }
     check(all(p.is_cuda for odo in odos.values() for p in odo.model.parameters()),
           "the odometry's model lies on the card by default")
-    frames = torch.from_numpy(
-        np.stack([odos["fused"]._prepare(s) for s in scans[:TRAIN_BATCH]])).cuda()
+    frames = odos["fused"]._prepare(scans[:TRAIN_BATCH])
     scan0, scan1 = frames[0:1], frames[1:2]
 
     if args.slam:
@@ -4509,8 +4605,9 @@ def main() -> int:
     finite += [m[key] for m in datasets["loader"].values()
                for key in ("files_per_s_native", "files_per_s_numpy")]
     check(all(math.isfinite(v) for v in finite), "every reported result is finite")
-    check(len(kernels) == 7 and all(k["launches"] > 0 for k in kernels),
-          "six kernels and the masked kNN, each launched on its main path")
+    check(len(kernels) == 9 and all(k["launches"] > 0 for k in kernels),
+          "six kernels, the masked kNN and the scan preparation's two, each launched on its "
+          "main path")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

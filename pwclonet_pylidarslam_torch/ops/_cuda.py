@@ -42,7 +42,7 @@ _EXACT = ("--fmad=false",)
 # flags of one source beside NVCC_FLAGS; a source not named here is held to a
 # tolerance and may contract its multiply-adds
 SOURCE_FLAGS = {"fps.cu": _EXACT, "knn.cu": _EXACT, "gather.cu": _EXACT,
-                "scatter_add.cu": _EXACT}
+                "scatter_add.cu": _EXACT, "prepare.cu": _EXACT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (all return a cudaError_t as int)
@@ -63,6 +63,10 @@ _SIGNATURES = {
     # params, centres, k, cc, cg, then per stack (n, w1, w2, w3) x 3,
     # att_includes_center, tile_centres, out, stream
     "pwclo_attentive_aggregate": (_P,) * 7 + (_I,) * 18 + (_P, _P),
+    # rows, offsets, t, f64, keep, counts, stream
+    "pwclo_prepare_keep": (_P, _P, _I, _I, _P, _P, _P),
+    # rows, offsets, keep, idx, t, n, f64, out, stream
+    "pwclo_prepare_take": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 # what an entry point returns, beside CUDA's own error codes, for a shape
@@ -72,7 +76,7 @@ UNSUPPORTED_SHAPE = -1
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"fps": 0, "knn": 0, "gather": 0, "scatter_add": 0, "mlp_maxpool": 0,
-            "attentive_aggregate": 0}
+            "attentive_aggregate": 0, "prepare_keep": 0, "prepare_take": 0}
 
 _lib = None
 

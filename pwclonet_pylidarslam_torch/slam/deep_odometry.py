@@ -1,17 +1,18 @@
 """Deep LiDAR odometry (inference) in PyTorch: PWCLO-Net and PoseResNet.
 
 Counterpart of ``PWCLONetOdometry`` and ``PoseNetOdometry`` in
-``pwclonet_pylidarslam_tpu/slam/deep_odometry.py``: prepare each scan (a
-fixed point count for PWCLO-Net, a vertex map for PoseResNet), run the
-network on each consecutive frame pair on the device, and chain the
-relative poses on the host in float64.
+``pwclonet_pylidarslam_tpu/slam/deep_odometry.py``: prepare each scan on the
+device (a fixed point count for PWCLO-Net, a chunk's scans at once, see
+:mod:`ops.prepare`; a vertex map for PoseResNet), run the network on each
+consecutive frame pair on the device, and chain the relative poses on the
+host in float64.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ from pwclonet_pylidarslam_torch.device import resolve_device
 from pwclonet_pylidarslam_torch.evaluation.metrics import compute_relative_poses
 from pwclonet_pylidarslam_torch.models import PWCLONet, PWCLONetConfig, load_flax_variables
 from pwclonet_pylidarslam_torch.models.posenet import PoseResNet, PoseResNetConfig, conv_precision
+from pwclonet_pylidarslam_torch.ops import prepare
 from pwclonet_pylidarslam_torch.utils.timer import count, span
 
 
@@ -65,7 +67,8 @@ class PWCLONetOdometry:
         self.model = PWCLONet(self.config.model, seed=seed, device=self.device)
         _load_variables(self.model, variables, self.device)
         self.state_pose: Optional[np.ndarray] = None
-        self._prev_scan: Optional[np.ndarray] = None
+        self._prev_scan: Optional[torch.Tensor] = None  # the last prepared scan, on the device
+        self._row_buffer: Optional[torch.Tensor] = None
         self.poses: list = []
 
     def init(self):
@@ -73,28 +76,55 @@ class PWCLONetOdometry:
         self._prev_scan = None
         self.poses = []
 
-    def _prepare(self, points: np.ndarray) -> np.ndarray:
-        count("odometry.points_in", len(points))
+    def _rows(self, total: int, dtype: torch.dtype) -> torch.Tensor:
+        """The first ``total`` rows of the upload buffer, ``(total, 3)`` of
+        ``dtype`` on the device: kept across calls, made anew when a chunk
+        needs more rows or another dtype."""
+        buf = self._row_buffer
+        if buf is None or len(buf) < total or buf.dtype != dtype:
+            self._row_buffer = buf = torch.empty((total, 3), dtype=dtype, device=self.device)
+        return buf[:total]
+
+    def _prepare(self, scans: Sequence[np.ndarray],
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Each of ``scans`` (``(hits, 3)`` rows, all float32 or all float64)
+        as the network takes it, on the device: its rows at the origin
+        dropped, by numpy's norm in the scans' dtype, then ``num_points``
+        drawn and rounded to float32 (:func:`ops.prepare.prepare`).
+        ``(T, n, 3)`` float32, or, after ``prev (n, 3)``, ``(T + 1, n, 3)``,
+        ``prev`` first. The scans' rows go to the device as they are, each
+        into its place in one buffer; the host makes only the draws, from
+        the counts of kept rows. Raises ``TypeError`` on scans of another
+        dtype, or of both."""
+        scans = [np.ascontiguousarray(s) for s in scans]
+        dtypes = {str(s.dtype) for s in scans}
+        if len(dtypes) > 1 or not dtypes <= {"float32", "float64"}:
+            raise TypeError(f"scans must be all float32 or all float64, got {sorted(dtypes)}")
+        offsets = np.zeros(len(scans) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in scans], out=offsets[1:])
+        total = int(offsets[-1])
+        count("odometry.points_in", total)
+        with span("odometry.h2d"):
+            rows = self._rows(total, torch.float64 if "float64" in dtypes else torch.float32)
+            for scan, lo in zip(scans, offsets.tolist()):
+                rows[lo: lo + len(scan)].copy_(torch.from_numpy(scan), non_blocking=True)
+            first = torch.from_numpy(offsets).to(self.device, non_blocking=True)
+            count("h2d.bytes", rows.nbytes + offsets.nbytes)
         n = self.config.num_points
-        pts = points[np.linalg.norm(points, axis=-1) > 1e-6]
-        if len(pts) >= n:
-            idx = np.random.default_rng(len(pts)).choice(len(pts), n, replace=False)
-            pts = pts[idx]
-        else:
-            extra = np.random.default_rng(0).choice(len(pts), n - len(pts), replace=True)
-            pts = np.concatenate([pts, pts[extra]])
-        return pts.astype(np.float32)
+        out = torch.empty((len(scans) + (prev is not None), n, 3), dtype=torch.float32,
+                          device=self.device)
+        if prev is not None:
+            out[0] = prev
+        prepare.prepare(rows, first, n, out=out[len(out) - len(scans):])
+        return out
 
     @torch.inference_mode()
-    def _relative_poses(self, cur: np.ndarray, prev: np.ndarray) -> np.ndarray:
+    def _relative_poses(self, cur: torch.Tensor, prev: torch.Tensor) -> np.ndarray:
         """Finest-level relative poses ``(B, 4, 4)`` float64 of pairs
-        ``cur (B, N, 3)`` (xyz1) against ``prev (B, N, 3)`` (xyz2)."""
-        with span("odometry.h2d"):
-            x1 = torch.from_numpy(cur).to(self.device)
-            x2 = torch.from_numpy(prev).to(self.device)
-            count("h2d.bytes", cur.nbytes + prev.nbytes)
+        ``cur (B, N, 3)`` (xyz1) against ``prev (B, N, 3)`` (xyz2), both on
+        the device."""
         with span("odometry.forward"):
-            params, _ = self.model(x1, x2)
+            params, _ = self.model(cur, prev)
             poses = se3.params_to_pose_quat(params[:, 0])
         with span("odometry.readback"):
             return poses.cpu().numpy().astype(np.float64)
@@ -102,38 +132,32 @@ class PWCLONetOdometry:
     @span("odometry.call")
     def process_next_frame(self, points: np.ndarray) -> np.ndarray:
         with span("odometry.prepare"):
-            scan = self._prepare(points)
+            prepared = self._prepare([points], self._prev_scan)
         if self._prev_scan is None:
-            self._prev_scan = scan
+            self._prev_scan = prepared[0]
             self.poses.append(np.eye(4))
             return self.state_pose
         # xyz1 = current, xyz2 = previous
-        rel = self._relative_poses(scan[None], self._prev_scan[None])[0]
+        rel = self._relative_poses(prepared[1:], prepared[:1])[0]
         with span("odometry.chain"):
             self.state_pose = self.state_pose @ rel
-            self._prev_scan = scan
+            self._prev_scan = prepared[1]
             self.poses.append(self.state_pose.copy())
         return self.state_pose
 
     @span("odometry.call")
-    def process_sequence(self, scans: np.ndarray) -> np.ndarray:
-        """All consecutive pairs of ``scans (T, N, 3)`` in one batched
-        forward. Returns ``(T, 4, 4)`` absolute poses of the newly processed
-        frames."""
+    def process_sequence(self, scans: Sequence[np.ndarray]) -> np.ndarray:
+        """All consecutive pairs of ``scans`` (``(T, N, 3)``, or T scans of
+        any row counts) in one batched forward. Returns ``(T, 4, 4)``
+        absolute poses of the newly processed frames."""
+        first = self._prev_scan is None
         with span("odometry.prepare"):
-            prepared = np.stack([self._prepare(s) for s in scans])
-        first_poses = []
-        if self._prev_scan is None:
-            prev = prepared[:-1]
-            cur = prepared[1:]
-            first_poses.append(np.eye(4))
-        else:
-            prev = np.concatenate([self._prev_scan[None], prepared[:-1]])
-            cur = prepared
+            prepared = self._prepare(scans, self._prev_scan)
+        cur, prev = prepared[1:], prepared[:-1]
         rels = self._relative_poses(cur, prev) if len(cur) else np.zeros((0, 4, 4))
         with span("odometry.chain"):
             out = []
-            for _ in first_poses:
+            if first:
                 self.poses.append(self.state_pose.copy())
                 out.append(self.state_pose.copy())
             for rel in rels:

@@ -15,6 +15,7 @@ from pwclonet_pylidarslam_torch import ops
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops import fps as tfps
 from pwclonet_pylidarslam_torch.ops import gather as tgather
+from pwclonet_pylidarslam_torch.ops import prepare as tprepare
 from pwclonet_pylidarslam_torch.ops.costvolume import attentive_aggregate_plain
 from pwclonet_pylidarslam_torch.ops.knn import _knn_cuda, knn, knn_plain
 from pwclonet_pylidarslam_torch.ops.mlp import mlp_maxpool_plain
@@ -469,8 +470,12 @@ def test_launches_are_counted_and_bad_input_raises(cuda_device, rng):
     ops.attentive_aggregate(*agg)
     rows = torch.zeros(1, 64, dtype=torch.int32, device=cuda_device)
     tgather.scatter_add_rows(pts, rows, 8)  # a plan and a sum
+    offsets = torch.tensor([0, 40, 64], device=cuda_device)
+    keep, _ = tprepare.keep_rows(pts[0], offsets)
+    tprepare.take_rows(pts[0], offsets, keep, torch.zeros(2, 8, dtype=torch.int32,
+                                                          device=cuda_device))
     once = {"fps": 1, "knn": 1, "gather": 1, "scatter_add": 2, "mlp_maxpool": 1,
-            "attentive_aggregate": 1}
+            "attentive_aggregate": 1, "prepare_keep": 1, "prepare_take": 1}
     assert _cuda.launch_counts() == once
     with pytest.raises(TypeError):
         tgather.gather_points(pts.double(), idx)
@@ -964,3 +969,93 @@ def test_cls_seg_models_card_against_cpu(cuda_device, task):
         ref = cpu(x, f)
         out = gpu(x.to(cuda_device), None if f is None else f.to(cuda_device))
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def _prepare_scans(rng, case: str) -> list:
+    if case == "cell":  # the odometry cell's chunk: 32 whole sweeps of 107-115k rows
+        scans = [(rng.normal(size=(int(h), 3)) * 20).astype(np.float32)
+                 for h in rng.integers(107_000, 115_001, 32)]
+        for s in scans[::3]:
+            s[rng.random(len(s)) < 0.08] = 0.0
+        return scans
+    if case == "padding":  # scans with fewer kept rows than 8,192 drawn
+        scans = [(rng.normal(size=(h, 3)) * 20).astype(np.float32) for h in (9000, 8192, 300, 1)]
+        scans[0][100:] = 0.0
+        scans[1][::2] = 0.0
+        return scans
+    # norms within a few ulps of 1e-6 either side, components of every
+    # relative size, among ordinary rows; in float64 also rows whose float32
+    # test would differ
+    m = 200_000
+    d = rng.normal(size=(m, 3)) * rng.choice([1.0, 1e-2, 1e-4], size=(m, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ulps = rng.integers(-6, 7, size=(m, 1))
+    if case == "threshold":
+        rows = (d * (1e-6 * (1.0 + ulps * 2.0 ** -23))).astype(np.float32)
+        far = (rng.normal(size=(m, 3)) * 10).astype(np.float32)
+    else:  # "float64"
+        rows = np.where(rng.random((m, 1)) < 0.5, d * (1e-6 * (1.0 + ulps * 2.0 ** -52)),
+                        d * (1e-6 * (1.0 + ulps * 2.0 ** -25)))
+        far = rng.normal(size=(m, 3)) * 10
+    return [rows[: m // 2], np.concatenate([far[: m // 2], rows[m // 2:]]), far[m // 2:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cell", "padding", "threshold", "float64"])
+def test_prepare_kernels_match_plain(cuda_device, rng, case):
+    """The keep and take kernels against their plain versions on the CPU to
+    the bit, and the whole preparation on the card against the plain one."""
+    n = 8192
+    scans = _prepare_scans(rng, case)
+    rows = torch.from_numpy(np.concatenate(scans))
+    offsets = torch.from_numpy(np.cumsum([0] + [len(s) for s in scans]))
+    card_rows, card_offsets = rows.to(cuda_device), offsets.to(cuda_device)
+    keep, counts = tprepare.keep_rows(card_rows, card_offsets)
+    plain_keep, plain_counts = tprepare.keep_rows_plain(rows, offsets)
+    assert torch.equal(counts.cpu(), plain_counts)
+    for lo, c in zip(offsets.tolist(), plain_counts.tolist()):
+        assert torch.equal(keep[lo: lo + c].cpu(), plain_keep[lo: lo + c])
+    idx = torch.from_numpy(np.stack([tprepare.draw(c, n) for c in counts.tolist()]).astype(np.int32))
+    out = tprepare.take_rows(card_rows, card_offsets, keep, idx.to(cuda_device))
+    assert out.dtype == torch.float32
+    assert torch.equal(out.cpu(), tprepare.take_rows_plain(rows, offsets, plain_keep, idx))
+    assert torch.equal(tprepare.prepare(card_rows, card_offsets, n).cpu(),
+                       tprepare.prepare(rows, offsets, n))
+
+
+@pytest.mark.cuda
+def test_odometry_prepares_on_the_card(cuda_device, rng):
+    """Chunks and single frames: one keep and one take a call, and the pairs
+    the network sees are the plain preparation's scans on the CPU."""
+    from pwclonet_pylidarslam_torch.models import PWCLONetConfig
+    from pwclonet_pylidarslam_torch.slam.deep_odometry import (
+        DeepOdometryConfig,
+        PWCLONetOdometry,
+    )
+
+    n = 256
+    cfg = DeepOdometryConfig(model=PWCLONetConfig(num_points=n, sa_npoints=(64, 32, 16, 8),
+                                                  sa_nsamples=(8, 8, 8, 4)), num_points=n)
+    scans = _prepare_scans(rng, "padding") + _prepare_scans(rng, "cell")[:3]
+    want = PWCLONetOdometry(config=cfg, device="cpu")._prepare(scans).numpy()
+
+    def run(calls) -> np.ndarray:
+        odo = PWCLONetOdometry(config=cfg, device=cuda_device)
+        odo.init()
+        seen = []
+        real = odo._relative_poses
+        odo._relative_poses = lambda cur, prev: (
+            seen.append((cur.cpu().numpy(), prev.cpu().numpy())) or real(cur, prev))
+        _cuda.reset_launch_counts()
+        calls(odo)
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+        cur = np.concatenate([c for c, _ in seen])
+        prev = np.concatenate([p for _, p in seen])
+        np.testing.assert_array_equal(cur, want[1:])
+        np.testing.assert_array_equal(prev, want[:-1])
+        return launches["prepare_keep"], launches["prepare_take"]
+
+    assert run(lambda odo: [odo.process_sequence(scans[:4]), odo.process_sequence(scans[4:])]) \
+        == (2, 2)
+    assert run(lambda odo: [odo.process_next_frame(s) for s in scans]) == (len(scans), len(scans))

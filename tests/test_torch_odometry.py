@@ -85,7 +85,7 @@ def test_prepare_matches_reference(sequence_and_reference):
     sparse = scans[0].copy()
     sparse[::2] = 0.0  # fewer points than requested: padded by resampling
     for scan in (scans[0], sparse):
-        np.testing.assert_array_equal(odo._prepare(scan), ref._prepare(scan))
+        np.testing.assert_array_equal(odo._prepare([scan])[0].numpy(), ref._prepare(scan))
 
 
 # chained pose entries (order 1) after five pairs: a few float32 ulps

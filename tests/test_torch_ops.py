@@ -11,6 +11,7 @@ from pwclonet_pylidarslam_torch import ops
 from pwclonet_pylidarslam_torch.ops import _cuda
 from pwclonet_pylidarslam_torch.ops import fps as tfps
 from pwclonet_pylidarslam_torch.ops import gather as tgather
+from pwclonet_pylidarslam_torch.ops import prepare as tprepare
 from pwclonet_pylidarslam_torch.ops.costvolume import _attentive_aggregate_cuda
 from pwclonet_pylidarslam_torch.ops.knn import _knn_cuda, knn, knn_plain
 from pwclonet_pylidarslam_torch.ops.mlp import _mlp_maxpool_cuda
@@ -197,9 +198,12 @@ def test_cpu_tensors_take_the_plain_path(rng):
     tgather.scatter_add_rows(pts[:, :8], idx, 64)
     src = pts.clone().requires_grad_()
     tgather.gather_points(src, idx).sum().backward()  # the plain path's own autograd
+    offsets = torch.tensor([0, 40, 64])
+    keep, _ = tprepare.keep_rows(pts[0], offsets)
+    tprepare.take_rows(pts[0], offsets, keep, torch.zeros(2, 8, dtype=torch.int32))
     assert _cuda.launch_counts() == {
         "fps": 0, "knn": 0, "gather": 0, "scatter_add": 0, "mlp_maxpool": 0,
-        "attentive_aggregate": 0}
+        "attentive_aggregate": 0, "prepare_keep": 0, "prepare_take": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -220,6 +224,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         _attentive_aggregate_cuda(pts, x, pts, x, ((torch.ones(10, 3),), (torch.zeros(3),)),
                                   None, ((torch.ones(9, 3),), (torch.zeros(3),)), True)
+    offsets = torch.tensor([0, 8])
+    with pytest.raises(ValueError, match="CUDA"):
+        tprepare._keep_rows_cuda(pts[0], offsets)
+    with pytest.raises(ValueError, match="CUDA"):
+        tprepare._take_rows_cuda(pts[0], offsets, torch.zeros(8, dtype=torch.int32),
+                                 torch.zeros(1, 4, dtype=torch.int32), torch.zeros(1, 4, 3))
 
 
 @pytest.mark.parametrize("b,n,m,tile,ints", [

@@ -118,15 +118,19 @@ def test_odometry_call_records_the_layer_spans():
     tree = _tree(rec)
     assert tree[0] == ("odometry.call", None)
     assert [n for n, p in tree if p == "odometry.call"] == [
-        "odometry.prepare", "odometry.h2d", "odometry.forward", "odometry.readback",
-        "odometry.chain"]
+        "odometry.prepare", "odometry.forward", "odometry.readback", "odometry.chain"]
+    assert [n for n, p in tree if p == "odometry.prepare"] == [
+        "odometry.h2d", "op.prepare_keep", "odometry.draw", "odometry.h2d", "op.prepare_take"]
     assert [n for n, p in tree if p == "odometry.forward"] == [
         "model.pyramid", "model.coarse", "model.refine"]
     for op in ("op.fps", "op.knn", "op.gather", "op.mlp_maxpool", "op.attentive_aggregate"):
         assert _parents(rec, op) - {"op.knn"} <= {"model.pyramid", "model.coarse",
                                                  "model.refine"}, op
     assert not _parents(rec, "op.scatter_sum")  # no backward in eval
-    assert rec.counters == {"odometry.points_in": 3 * 300, "h2d.bytes": 2 * 2 * 128 * 3 * 4}
+    # the raw rows and their offsets, then the drawn indices
+    assert rec.counters == {"odometry.points_in": 3 * 300,
+                            "h2d.bytes": 3 * 300 * 3 * 4 + 4 * 8 + 3 * 128 * 4,
+                            "odometry.scans_padded": 0}
 
 
 def test_train_block_records_the_layer_spans():

@@ -375,7 +375,7 @@ def main() -> int:
 
     scans, _ = generate_sequence(SyntheticSequenceConfig(n_frames=2, seed=0))
     odo = PWCLONetOdometry(None, DeepOdometryConfig(model=PWCLONetConfig(fused_eval=True)), seed=0)
-    both = torch.from_numpy(np.stack([odo._prepare(s) for s in scans])).cuda()  # (2, 8192, 3)
+    both = odo._prepare(scans)  # (2, 8192, 3), on the card
     out = {"root": args.root}
 
     if wanted & {"gather", "scatter_add"}:
